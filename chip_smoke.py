@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's render path on one CUDA card.
+"""Drive the PyTorch port's render path and training step on one CUDA card.
 
 Usage: ``python3 chip_smoke.py`` from the repository root, on a machine with
 one NVIDIA H100 (or another sm_90a card) and the CUDA toolkit. It builds the
 port's CUDA kernels from ``gsplat_tpu_torch/csrc`` (into ``build/kernels``),
-then runs four phases, each printing one JSON line:
+then runs six phases, each printing one JSON line:
 
   1. device: the card's name and power limit, torch/CUDA versions, kernel
      build time and the compiler's register report;
@@ -14,11 +14,30 @@ then runs four phases, each printing one JSON line:
   3. served: the bench scene (1M gaussians, 1920x1080, SH degree 3,
      tile 32, chunk 32, pair block 128, capacity 1.5x the measured demand)
      answers three render requests through ``gsplat_tpu_torch.render``;
-     the kernel's launch count over those requests must be exactly 3, and
-     one full frame is held against the plain version;
-  4. timing: the kernel alone and the plain version at the phase-3 shapes,
-     with the kernel's bound on this card, and one request taken apart by
-     stage, with its device-busy time and host synchronisations.
+     the forward kernel's launch count over those requests must be exactly
+     3 and the backward kernel's 0, and one full frame is held against the
+     plain version;
+  4. timing: the forward kernel alone and the plain version at the phase-3
+     shapes, with the kernel's bound on this card, and one request taken
+     apart by the stages ``render`` marks, with its device-busy time and
+     host synchronisations;
+  5. grad_small: the backward kernel and the gradient reduction against
+     their plain versions on the phase-2 frame (early stop off and 1e-4),
+     every element within tolerance, two runs bitwise equal, and autograd
+     through ``render`` on a 64x48 scene against autograd through the
+     sequential oracle;
+  6. train: the bench training step at the phase-3 scene (exact mode,
+     ``rgb_loss`` against 0.25 with SSIM weight 0.2): one full-frame
+     backward kernel against its plain version, then ``Trainer.fit`` for 3
+     steps over the three phase-3 poses (finite losses, one forward and one
+     backward launch per step, every parameter changed), the step's median
+     time, device-busy time and the stages ``train_step`` marks, the
+     backward kernel's time against its bound and the plain version's, the
+     peak device memory, and the seconds the script has run so far.
+
+A kernel's bound counts the work its inputs need: the gate (and its expf)
+at every pair-pixel the kernel walks, and the compositing or gradient work
+only at the pair-pixels that pass the gate, which the script counts.
 
 It then prints ``nvidia-smi``'s name/power-limit line, the ``kernels`` JSON
 line and, last, ``{"ok": true, "device": {...}}``. Any failed check raises,
@@ -44,7 +63,18 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_FP32_OPS = 67e12  # FP32 outside the tensor cores, ops/s
 PEAK_SFU_EXP = 132 * 16 * 1.98e9  # SMs x exp/clock/SM x boost clock, exps/s
 PEAK_HBM_BYTES = 3.35e12  # bytes/s
-FP32_OPS_PER_PAIR_PIXEL = 20  # density, alpha, gates and compositing
+# Operations per pair-pixel (csrc/raster_common.cuh, raster_fwd.cu,
+# raster_bwd.cu). Every walked pair-pixel needs its gate: d = mean - pixel
+# (2), the quadratic form and density (9), raw and the alpha clamp (2), the
+# bbox (4) and the alpha and density tests (2), and one expf on the SFU.
+# Only where the gate passes is there more to do: the forward's compositing
+# (w, three colour multiply-adds, T: 9); the backward's walk (w, u, S, 1-a,
+# d_a, the raw clamp, d_density, T: 14, and a division on the SFU), its nine
+# per-pixel gradient terms (20) and their pixel sums (9). Where the gate
+# fails, alpha is 0 and colour, T, S and every gradient stay as they were.
+GATE_FP32_OPS = 19
+FWD_PASSED_FP32_OPS = 9
+BWD_PASSED_FP32_OPS = 43
 
 # Headline scene and settings (bench.py:71-72, 172-231, 282-307).
 WIDTH, HEIGHT = 1920, 1080
@@ -141,77 +171,164 @@ def cuda_ms(fn, runs: int):
     return statistics.median(times)
 
 
-def request_breakdown(model, camera, cfg, runs: int = 5) -> dict:
-    """One render request taken apart: the median CUDA-event milliseconds of
-    each stage of ``render_traced`` called one by one, of the whole request,
-    the device-busy milliseconds of one request from ``torch.profiler``
-    (None where the profiler records no device time), and the host
-    synchronisations one request and its binning make."""
-    import warnings
-
+def device_busy_ms(fn):
+    """Milliseconds the device spends in kernels during one ``fn()``, from
+    ``torch.profiler`` (None where it records no device time)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    import gsplat_tpu_torch as gs
-    from gsplat_tpu_torch.kernels.raster import rasterize_tiles
-    from gsplat_tpu_torch.ops import binning
-    from gsplat_tpu_torch.render.pipeline import preprocess_traced
-    from gsplat_tpu_torch.render.tile_torch import tiles_to_image
-
-    dev = model.means.device
-    w, h, ts = camera.width, camera.height, cfg.tile_size
-    ntx = -(-w // ts)
-    tile_ids = torch.arange(ntx * -(-h // ts), dtype=torch.int32, device=dev)
-    names = ("camera", "preprocess", "pack_features", "binning", "raster_fwd", "tiles_to_image")
-    samples = {k: [] for k in names}
-    for _ in range(runs):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
-        ev[0].record()
-        cam = gs.CameraArrays.from_params(camera, device=dev)
-        ev[1].record()
-        prep = preprocess_traced(model, cam, w, h, cfg)
-        ev[2].record()
-        feat = binning.pack_features(prep)
-        ev[3].record()
-        bins = binning.bin_gaussians(prep, w, h, ts, cfg.max_pairs, align=cfg.pair_block)
-        ev[4].record()
-        color, trans = rasterize_tiles(feat, bins.pair_gaussian, bins.tile_start, bins.tile_count,
-                                       tile_ids, bins.gaussian_counts, ntx, cfg, w, h)
-        ev[5].record()
-        tiles_to_image(color, w, h, ts), tiles_to_image(trans, w, h, ts)
-        ev[6].record()
-        torch.cuda.synchronize()
-        for i, k in enumerate(names):
-            samples[k].append(ev[i].elapsed_time(ev[i + 1]))
-    out = {"stage_ms": {k: statistics.median(v) for k, v in samples.items()},
-           "request_ms": cuda_ms(lambda: gs.render(model, camera, cfg), runs)}
-
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        gs.render(model, camera, cfg)
+        fn()
         torch.cuda.synchronize()
     busy_us = sum(
         getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages()
         if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
     )
-    out["device_busy_ms"] = busy_us / 1e3 if busy_us > 0 else None
+    return busy_us / 1e3 if busy_us > 0 else None
 
-    def host_syncs(fn) -> int:
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            with warnings.catch_warnings(record=True) as caught:
-                warnings.simplefilter("always")
-                fn()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-        return sum("synchroniz" in str(c.message) for c in caught)
 
+def host_syncs(fn) -> int:
+    """Host synchronisations PyTorch reports during one ``fn()``
+    (``torch.cuda.set_sync_debug_mode``, a prototype that may miss some)."""
+    import warnings
+
+    import torch
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(c.message) for c in caught)
+
+
+def random_cotangents(color, trans, seed: int):
+    """Normal cotangents of the compositor's outputs, from a seeded
+    generator on their device."""
+    import torch
+
+    gen = torch.Generator(device=color.device).manual_seed(seed)
+    return (torch.randn(color.shape, generator=gen, device=color.device),
+            torch.randn(trans.shape, generator=gen, device=color.device))
+
+
+def rows_error(got, want, what: str) -> dict:
+    """Gradient rows of the kernel (per-pair rows, or reduced ``d_feat``)
+    against the plain version's, column by column: every element must be
+    within rtol 1e-4 plus atol 1e-5 of its own column's largest magnitude
+    (the pixel sums run in another order, and the sort + cumsum reduction
+    turns a last-bit difference of a row into about an ulp of its running
+    sum; see tests/test_torch_gpu.py). Raises otherwise; returns the rows
+    either makes nonzero, the largest absolute error, and each column's
+    largest absolute error and largest magnitude."""
+    err = (got - want).abs()
+    col_max = want.abs().amax(0)
+    outside = int((err > 1e-4 * want.abs() + 1e-5 * col_max).any(1).sum())
+    out = {"rows_walked": int(((got != 0) | (want != 0)).any(1).sum()), "rows_outside": outside,
+           "max_abs_err": float(err.max()), "col_max_abs_err": err.amax(0)[:9].tolist(),
+           "col_max": col_max[:9].tolist()}
+    check(outside == 0, f"{what}: {outside} rows beyond tolerance: {out}")
+    return out
+
+
+def pair_pixels(args, n_tiles_x: int, cfg, blocks_done=None, chunk: int = 1 << 13) -> tuple:
+    """(walked, passed): the pair-pixels a compositor pass over these inputs
+    evaluates (each pair slot a tile walks, up to ``blocks_done`` blocks,
+    at each of the tile's pixels; alignment pads are not walked), and those
+    among them at which the pair passes its gates (alpha, density, bbox)."""
+    import torch
+
+    from gsplat_tpu_torch.ops import binning as B
+    from gsplat_tpu_torch.ops.compositing import gaussian_alpha
+    from gsplat_tpu_torch.render.tile_torch import tile_pixel_coords
+
+    feat, pair_gaussian, tile_start, tile_count, tile_ids = args
+    dev = feat.device
+    walked = tile_count.long()
+    if blocks_done is not None:
+        walked = torch.minimum(walked, blocks_done.long() * cfg.pair_block)
+    tiles = torch.repeat_interleave(torch.arange(len(tile_ids), device=dev), walked)
+    first = torch.cumsum(walked, 0) - walked
+    slots = tile_start.long()[tiles] + torch.arange(len(tiles), device=dev) - first[tiles]
+    px, py = tile_pixel_coords(tile_ids, n_tiles_x, cfg.tile_size, feat.dtype)
+    passed = torch.zeros((), dtype=torch.int64, device=dev)
+    for i in range(0, len(slots), chunk):
+        f = feat[pair_gaussian[slots[i:i + chunk]].long()][:, :, None]  # [c, 16, 1]
+        x, y = px[tiles[i:i + chunk]], py[tiles[i:i + chunk]]  # [c, npix]
+        at = gaussian_alpha(x, y, *(f[:, k] for k in (B.FEAT_MEAN_X, B.FEAT_MEAN_Y, B.FEAT_CONIC_X,
+                                                      B.FEAT_CONIC_Y, B.FEAT_CONIC_XY, B.FEAT_OPACITY)))
+        inside = ((x >= f[:, B.FEAT_X_MIN]) & (x < f[:, B.FEAT_X_MAX])
+                  & (y >= f[:, B.FEAT_Y_MIN]) & (y < f[:, B.FEAT_Y_MAX]))
+        passed += (at.valid & inside).sum()
+    return len(slots) * cfg.tile_size ** 2, int(passed)
+
+
+def compositor_bound(walked: int, passed: int, nbytes: int, backward: bool) -> dict:
+    """A compositor's least time on this card for the work these inputs
+    need: every walked pair-pixel's gate and expf, the rest only where the
+    gate passes, against the bytes read and written once."""
+    fp32 = walked * GATE_FP32_OPS + passed * (BWD_PASSED_FP32_OPS if backward else FWD_PASSED_FP32_OPS)
+    sfu = walked + (passed if backward else 0)  # expf; the backward's division
+    out = {"pair_pixels": walked, "passed_pair_pixels": passed, "passed_share": passed / max(walked, 1),
+           "bytes": nbytes, "bytes_ms": nbytes / PEAK_HBM_BYTES * 1e3,
+           "fp32_ms": fp32 / PEAK_FP32_OPS * 1e3, "sfu_ms": sfu / PEAK_SFU_EXP * 1e3}
+    out["ops_ms"] = max(out["fp32_ms"], out["sfu_ms"])
+    out["bound_ms"] = max(out["bytes_ms"], out["ops_ms"])
+    out["bound_by"] = "operations" if out["ops_ms"] >= out["bytes_ms"] else "bytes"
+    return out
+
+
+def stage_breakdown(fn, runs: int = 5) -> dict:
+    """The median CUDA-event milliseconds of each stage that one ``fn()``
+    marks (``gsplat_tpu_torch/utils/stages.py``), over ``runs`` calls. A
+    training step's backward is also split at its marked stages: from its
+    start to the backward kernel (the loss's and the image assembly's
+    backward: "loss_backward"), and from the reduction's end to its own
+    (autograd through pack_features and the preprocess: "preprocess_backward")."""
+    import torch
+
+    from gsplat_tpu_torch.utils.stages import record_stages
+
+    samples = {}
+    for _ in range(runs):
+        with record_stages() as spans:
+            fn()
+        torch.cuda.synchronize()
+        ev = {name: (start, end) for name, start, end in spans}
+        ms = {name: start.elapsed_time(end) for name, (start, end) in ev.items()}
+        if "backward" in ev:
+            ms["loss_backward"] = ev["backward"][0].elapsed_time(ev["raster_bwd"][0])
+            ms["preprocess_backward"] = ev["reduction"][1].elapsed_time(ev["backward"][1])
+        for name, value in ms.items():
+            samples.setdefault(name, []).append(value)
+    return {name: statistics.median(v) for name, v in samples.items()}
+
+
+def request_breakdown(model, camera, cfg, runs: int = 5) -> dict:
+    """One render request taken apart: the stages ``gs.render`` marks
+    (median of ``runs``), the whole request (CUDA events), the device-busy
+    milliseconds of one request from ``torch.profiler`` (None where the
+    profiler records no device time), and the host synchronisations one
+    request and its binning make."""
+    import gsplat_tpu_torch as gs
+    from gsplat_tpu_torch.ops import binning
+    from gsplat_tpu_torch.render.pipeline import preprocess
+
+    w, h = camera.width, camera.height
+    out = {"stage_ms": stage_breakdown(lambda: gs.render(model, camera, cfg), runs),
+           "request_ms": cuda_ms(lambda: gs.render(model, camera, cfg), runs)}
+    out["device_busy_ms"] = device_busy_ms(lambda: gs.render(model, camera, cfg))
     out["request_host_syncs"] = host_syncs(lambda: gs.render(model, camera, cfg))
+    prep = preprocess(model, camera, cfg)
     out["binning_host_syncs"] = host_syncs(
-        lambda: binning.bin_gaussians(prep, w, h, ts, cfg.max_pairs, align=cfg.pair_block))
+        lambda: binning.bin_gaussians(prep, w, h, cfg.tile_size, cfg.max_pairs, align=cfg.pair_block))
     return out
 
 
 def main() -> int:
+    t_main = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -227,6 +344,7 @@ def main() -> int:
 
     import gsplat_tpu_torch as gs
     from gsplat_tpu_torch.kernels import build
+    from gsplat_tpu_torch.kernels.raster_bwd import backward_tiles, backward_tiles_plain, reduce_pair_grads
     from gsplat_tpu_torch.kernels.raster_fwd import forward_tiles, forward_tiles_plain
     from gsplat_tpu_torch.render.tile_torch import tiles_to_image
 
@@ -237,7 +355,8 @@ def main() -> int:
     t0 = time.perf_counter()
     built = build.build()
     build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in build.build_log("raster_fwd").splitlines() if "registers" in ln or "smem" in ln]
+    ptxas = {name: [ln.strip() for ln in build.build_log(name).splitlines() if "registers" in ln or "spill" in ln]
+             for name in build.SOURCES}
     emit({
         "phase": "device", "nvidia_smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
         "device": torch.cuda.get_device_name(0), "build_s": build_s, "compiled": sorted(built),
@@ -287,7 +406,7 @@ def main() -> int:
         gs.render(model, cam0, cfg)  # warm-up: allocator and library kernels
         torch.cuda.synchronize()
         requests, frames = [], []
-        forward_tiles.launches = 0
+        forward_tiles.launches = backward_tiles.launches = 0
         for name, yaw in poses:
             camera = bench_camera(WIDTH, HEIGHT, yaw)
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -301,6 +420,7 @@ def main() -> int:
             requests.append({"pose": name, "ms": start.elapsed_time(end), "host_ms": host_ms})
         launches = forward_tiles.launches
         check(launches == len(poses), f"kernel launches over the requests: {launches} != {len(poses)}")
+        check(backward_tiles.launches == 0, "no backward launch while serving")
         for req, (name, yaw), (img, trans) in zip(requests, poses, frames):
             stats = gs.binning_stats(
                 model, gs.CameraArrays.from_params(bench_camera(WIDTH, HEIGHT, yaw), device=dev), WIDTH, HEIGHT, cfg)
@@ -344,27 +464,136 @@ def main() -> int:
         kernel_ms = cuda_ms(lambda: forward_tiles(*args, ntx, cfg, WIDTH, HEIGHT), 20)
         plain_ms = cuda_ms(lambda: forward_tiles_plain(*args, ntx, cfg, WIDTH, HEIGHT), 3)
         breakdown = request_breakdown(model, cam0, cfg)
-    feat, pair_gaussian, tile_start, tile_count, tile_ids = args
-    npix = cfg.tile_size * cfg.tile_size
-    pair_pixels = int(tile_count.sum()) * npix  # the kernel skips alignment pads
-    in_bytes = sum(t.numel() * t.element_size() for t in args)
-    out_bytes = len(tile_ids) * (npix * 4 * 4 + 4)
-    bytes_ms = (in_bytes + out_bytes) / PEAK_HBM_BYTES * 1e3
-    ops_ms = max(pair_pixels * FP32_OPS_PER_PAIR_PIXEL / PEAK_FP32_OPS, pair_pixels / PEAK_SFU_EXP) * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
+        # Exact mode: every tile walks all its pairs (blocks_done = all).
+        fwd_bytes = (sum(t.numel() * t.element_size() for t in args)
+                     + len(args[4]) * (cfg.tile_size ** 2 * 4 * 4 + 4))  # colour, T, blocks_done
+        fwd_bound = compositor_bound(*pair_pixels(args, ntx, cfg), fwd_bytes, backward=False)
     emit({
-        "phase": "timing", "kernel_ms": kernel_ms, "plain_ms": plain_ms, "pair_pixels": pair_pixels,
-        "bytes": in_bytes + out_bytes, "bytes_ms": bytes_ms, "ops_ms": ops_ms, "bound_ms": bound_ms,
-        "pair_slots": pair_gaussian.numel(), "tiles": len(tile_ids), **breakdown,
+        "phase": "timing", "kernel_ms": kernel_ms, "plain_ms": plain_ms, **fwd_bound,
+        "pair_slots": args[1].numel(), "tiles": len(args[4]), **breakdown,
     })
 
+    # -- phase 5: backward kernel vs plain, small; autograd vs oracle, tiny --
+    grad_small = {}
+    with torch.inference_mode():
+        model = build_scene(20_000, 2.5, dev)
+        args, bins, ntx = binned_inputs(model, bench_camera(256, 192), small_cfg)
+        n_rows = args[0].shape[0]
+        for stop in (0.0, 1e-4):
+            scfg = dataclasses.replace(small_cfg, early_stop_transmittance=stop)
+            color, trans, done = forward_tiles(*args, ntx, scfg, 256, 192)
+            outs = (color, trans, *random_cotangents(color, trans, seed=1))
+            runs = []
+            for _ in range(2):
+                rows = backward_tiles(*args, *outs, ntx, scfg, done)
+                runs.append((rows, reduce_pair_grads(rows, args[1], bins.gaussian_counts, n_rows)))
+            torch.cuda.synchronize()
+            p_rows = backward_tiles_plain(*args, *outs, ntx, scfg, done)
+            p_feat = reduce_pair_grads(p_rows, args[1], bins.gaussian_counts, n_rows)
+            (rows, d_feat), (rows2, d_feat2) = runs
+            check(torch.equal(rows, rows2) and torch.equal(d_feat, d_feat2),
+                  f"two backward + reduction runs bitwise equal (early stop {stop})")
+            grad_small[f"stop_{stop}"] = {
+                "rows": rows_error(rows, p_rows, f"phase 5 rows (early stop {stop})"),
+                "d_feat": rows_error(d_feat, p_feat, f"phase 5 d_feat (early stop {stop})"),
+                "tiles_stopped_early": int((done < -(-args[3] // scfg.pair_block)).sum()),
+            }
+        check(grad_small["stop_0.0001"]["tiles_stopped_early"] > 0, "phase 5 exercises the early stop")
+    tiny_model = build_scene(300, 1.5, dev)
+    names = [k for k, _ in tiny_model.named_parameters()]
+    w_img, w_trans = random_cotangents(torch.empty(48, 64, 3, device=dev), torch.empty(48, 64, device=dev), seed=2)
+    grads = []
+    for render_fn in (gs.render, gs.render_reference_oracle):
+        img, trans = render_fn(tiny_model, tiny_cam, tiny_cfg)
+        loss = (img * w_img).sum() + (trans * w_trans).sum()
+        grads.append(torch.autograd.grad(loss, list(tiny_model.parameters())))
+    grad_small["oracle_grad_max_abs_err"] = {}
+    for name, got, want in zip(names, *grads):
+        check(bool(torch.isfinite(got).all()), f"finite {name} gradient")
+        scale = float(want.abs().max()) + 1e-8
+        torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-5 * scale + 1e-10)  # tests/test_gradients.py:47
+        grad_small["oracle_grad_max_abs_err"][name] = float((got - want).abs().max()) / scale
+    emit({"phase": "grad_small", **grad_small})
+
+    # -- phase 6: the training step at full width --
+    model = build_scene(NUM_GAUSSIANS, 0.0, dev)
+    target = torch.full((HEIGHT, WIDTH, 3), 0.25, device=dev)
+    train = {}
+    with torch.no_grad():
+        args, bins, ntx = binned_inputs(model, cam0, cfg)
+        color, trans, done = forward_tiles(*args, ntx, cfg, WIDTH, HEIGHT)
+        outs = (color, trans, *random_cotangents(color, trans, seed=3))
+        rows = backward_tiles(*args, *outs, ntx, cfg, done)
+        torch.cuda.synchronize()
+        p_rows = backward_tiles_plain(*args, *outs, ntx, cfg, done)
+        d_feat = reduce_pair_grads(rows, args[1], bins.gaussian_counts, args[0].shape[0])
+        p_feat = reduce_pair_grads(p_rows, args[1], bins.gaussian_counts, args[0].shape[0])
+        frame = {"rows": rows_error(rows, p_rows, "full-frame rows"),
+                 "d_feat": rows_error(d_feat, p_feat, "full-frame d_feat")}
+        for _ in range(3):
+            backward_tiles(*args, *outs, ntx, cfg, done)
+        bwd_ms = cuda_ms(lambda: backward_tiles(*args, *outs, ntx, cfg, done), 20)
+        bwd_plain_ms = cuda_ms(lambda: backward_tiles_plain(*args, *outs, ntx, cfg, done), 3)
+        reduction_ms = cuda_ms(lambda: reduce_pair_grads(rows, args[1], bins.gaussian_counts, args[0].shape[0]), 20)
+        bwd_bytes = (sum(t.numel() * t.element_size() for t in (*args, *outs, done))
+                     + args[1].numel() * 9 * 4)  # the [P, 9] rows
+        bwd_bound = compositor_bound(*pair_pixels(args, ntx, cfg, done), bwd_bytes, backward=True)
+        del color, trans, outs, rows, p_rows, d_feat, p_feat
+
+    trainer = gs.Trainer(raster=cfg, train=gs.TrainConfig(ssim_weight=0.2, steps=3, log_every=1),
+                         show_progress=False)
+    views = [(bench_camera(WIDTH, HEIGHT, yaw), target) for _, yaw in poses]
+    before = {k: p.detach().clone() for k, p in model.named_parameters()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    forward_tiles.launches = backward_tiles.launches = 0
+    fit0 = time.perf_counter()
+    model, history = trainer.fit(model, views)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - fit0
+    train_launches = {"raster_fwd": forward_tiles.launches, "raster_bwd": backward_tiles.launches}
+    peak_bytes = torch.cuda.max_memory_allocated()
+    check(len(history) == 3 and all(math.isfinite(h["loss"]) for h in history), f"finite losses: {history}")
+    check(train_launches == {"raster_fwd": 3, "raster_bwd": 3}, f"launches over 3 steps: {train_launches}")
+    check(trainer.raster == cfg, "no capacity resize at 1.5x demand")
+    for k, p in model.named_parameters():
+        check(not torch.equal(p.detach(), before[k]), f"parameter {k} changed")
+    del before
+
+    optimizer = trainer.init_state(model)
+    trainer.train_step(model, optimizer, cam0, target)  # warm-up of a fresh optimizer
+    step_ms = cuda_ms(lambda: trainer.train_step(model, optimizer, cam0, target), 5)
+    step_busy_ms = device_busy_ms(lambda: trainer.train_step(model, optimizer, cam0, target))
+    step_syncs = host_syncs(lambda: trainer.train_step(model, optimizer, cam0, target))
+    stages = stage_breakdown(lambda: trainer.train_step(model, optimizer, cam0, target))
+    train.update({
+        "num_gaussians": NUM_GAUSSIANS, "width": WIDTH, "height": HEIGHT, "capacity": capacity,
+        "full_frame_bwd": frame, "losses": [h["loss"] for h in history], "psnr": [h["psnr"] for h in history],
+        "fit_s": fit_s, "launches": train_launches, "step_ms": step_ms, "step_device_busy_ms": step_busy_ms,
+        "step_host_syncs": step_syncs,
+        "stage_ms": stages,
+        "raster_bwd_ms": bwd_ms, "raster_bwd_plain_ms": bwd_plain_ms, "reduction_ms": reduction_ms,
+        "raster_bwd_bound": bwd_bound,
+        "max_memory_allocated": peak_bytes,
+        "elapsed_s": time.perf_counter() - t_main,  # since main() began, the build included
+    })
+    emit({"phase": "train", **train})
+
     print(smi, flush=True)
-    emit({"kernels": [{
-        "name": "raster_fwd", "route": "cuda", "source": "gsplat_tpu_torch/csrc/raster_fwd.cu",
-        "replaces": "gsplat_tpu/kernels/raster_fwd.py:68", "launches": launches,
-        "max_abs_err": frame_err, "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "library_ms": None,
-    }]})
+    emit({"kernels": [
+        {
+            "name": "raster_fwd", "route": "cuda", "source": "gsplat_tpu_torch/csrc/raster_fwd.cu",
+            "replaces": "gsplat_tpu/kernels/raster_fwd.py:68", "launches": launches,
+            "max_abs_err": frame_err, "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": fwd_bound["bound_ms"],
+            "bound_by": fwd_bound["bound_by"], "library_ms": None,
+        },
+        {
+            "name": "raster_bwd", "route": "cuda", "source": "gsplat_tpu_torch/csrc/raster_bwd.cu",
+            "replaces": "gsplat_tpu/kernels/raster_bwd.py:45", "launches": train_launches["raster_bwd"],
+            "max_abs_err": frame["rows"]["max_abs_err"], "ms": bwd_ms, "plain_ms": bwd_plain_ms,
+            "bound_ms": bwd_bound["bound_ms"], "bound_by": bwd_bound["bound_by"], "library_ms": None,
+        },
+    ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

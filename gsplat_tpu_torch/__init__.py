@@ -1,14 +1,16 @@
 """gsplat_tpu_torch: the PyTorch and CUDA port of gsplat_tpu.
 
 The render path of ``gsplat_tpu`` (activations, SH color, camera matrices,
-EWA preprocess, tile binning, tile compositing, image assembly) in PyTorch,
-with the tile compositor as a hand-written CUDA kernel for Hopper. Entry
+EWA preprocess, tile binning, tile compositing, image assembly) and its
+training step (L1 + SSIM loss, gradients to every splat parameter, Adam) in
+PyTorch, with the forward and backward tile compositors as hand-written
+CUDA kernels for Hopper. Entry
 points run on the device of their tensors; the factories default to
 ``device="cuda"`` and raise when no card is present. This package imports
 neither JAX nor ``gsplat_tpu``.
 """
 
-from gsplat_tpu_torch.config import RasterConfig
+from gsplat_tpu_torch.config import RasterConfig, TrainConfig
 from gsplat_tpu_torch.models.gaussians import GaussianModel, random_model
 from gsplat_tpu_torch.ops.camera import CameraArrays, CameraParams
 from gsplat_tpu_torch.render.pipeline import (
@@ -20,6 +22,8 @@ from gsplat_tpu_torch.render.pipeline import (
     required_max_pairs,
     suggest_max_pairs,
 )
+from gsplat_tpu_torch.train.loss import psnr, rgb_loss, ssim
+from gsplat_tpu_torch.train.trainer import Trainer
 
 __version__ = "0.1.0"
 
@@ -28,12 +32,17 @@ __all__ = [
     "CameraParams",
     "GaussianModel",
     "RasterConfig",
+    "TrainConfig",
+    "Trainer",
     "binning_stats",
+    "psnr",
     "random_model",
     "render",
     "render_batch",
     "render_reference_oracle",
     "render_traced",
     "required_max_pairs",
+    "rgb_loss",
+    "ssim",
     "suggest_max_pairs",
 ]

@@ -1,16 +1,19 @@
-"""Configuration of the PyTorch port: the reference constants and the
-rasterization settings.
+"""Configuration of the PyTorch port: the reference constants, the
+rasterization settings and the training settings.
 
 Mirrors ``gsplat_tpu/config.py``. The kernel/plain choice is not a setting
 here: every rasterizer call dispatches on the device of its tensors (a CUDA
 tensor launches the hand-written kernel, a CPU tensor takes its plain
 PyTorch version), so ``use_pallas`` and ``force_pallas_interpret`` have no
-counterpart.
+counterpart. Nor has ``share_pair_feat``: the CUDA kernels gather each
+pair's row from ``feat`` directly, so there is no TPU-layout pair-feature
+slab to keep between the forward and the backward.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 # --- Constants matching the reference semantics (rasterize.py:29-38) ---
 Z_FAR = 100.0
@@ -47,6 +50,8 @@ class RasterConfig:
         The reference has no early stop, so parity runs use 0.0.
       strict_parity: skip gaussians where *any* conic coefficient is zero,
         as the reference does (rasterize.py:441).
+      reduce_pairs: capacity of the compacted gradient reduction; not
+        ported yet, must be 0.
       slice_pairs: depth-sliced rendering; not ported yet, must be 0.
     """
 
@@ -57,6 +62,7 @@ class RasterConfig:
     sh_degree: int = 3
     early_stop_transmittance: float = 0.0
     strict_parity: bool = True
+    reduce_pairs: int = 0
     slice_pairs: int = 0
 
     def __post_init__(self):
@@ -64,6 +70,11 @@ class RasterConfig:
             raise NotImplementedError(
                 "slice_pairs > 0 (the depth-sliced path) is not ported yet; "
                 "use slice_pairs=0"
+            )
+        if self.reduce_pairs > 0:
+            raise NotImplementedError(
+                "reduce_pairs > 0 (the compacted gradient reduction) is not "
+                "ported yet; use reduce_pairs=0"
             )
         if self.pair_block % self.chunk_size != 0:
             raise ValueError(
@@ -74,3 +85,44 @@ class RasterConfig:
     @property
     def pixels_per_tile(self) -> int:
         return self.tile_size * self.tile_size
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training / fine-tuning settings (the 3DGS recipe).
+
+    Attributes:
+      lr_means, lr_scales, lr_quats, lr_opacity, lr_sh: Adam learning rate
+        of each parameter.
+      lr_means_final, lr_means_decay_steps: the 3DGS position schedule,
+        log-linear decay of ``lr_means`` to ``lr_means_final`` over that
+        many optimizer updates, clamped there after (0 steps = constant).
+      ssim_weight: loss = (1-w)*L1 + w*(1-SSIM).
+      background: "black", "white" or "random" (a fresh colour every step);
+        the render is composited onto it through its transmittance.
+      steps, log_every, checkpoint_every: loop length and cadences.
+      densify: adaptive density control; not ported yet, must be None.
+      sh_warmup_every: train with SH degree ``min(step // this, degree)``
+        (0 = full degree from step 0).
+    """
+
+    lr_means: float = 1.6e-4
+    lr_scales: float = 5e-3
+    lr_quats: float = 1e-3
+    lr_opacity: float = 5e-2
+    lr_sh: float = 2.5e-3
+    lr_means_final: float = 0.0
+    lr_means_decay_steps: int = 0
+    ssim_weight: float = 0.2
+    background: str = "black"
+    steps: int = 1000
+    log_every: int = 50
+    checkpoint_every: int = 500
+    densify: Optional[object] = None
+    sh_warmup_every: int = 0
+
+    def __post_init__(self):
+        if self.densify is not None:
+            raise NotImplementedError(
+                "densify (adaptive density control) is not ported yet; use densify=None"
+            )

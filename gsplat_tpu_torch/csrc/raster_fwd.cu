@@ -6,13 +6,14 @@
 // compositing of the tile's depth-ordered (tile, gaussian) pairs, producing
 // colour, final transmittance and the number of pair blocks composited.
 //
-// What bounds it on this card: operations. Every pair slot of a tile is
-// evaluated at all tile_size^2 pixels, about 20 FP32 operations and one
-// expf each, against about 56 bytes per pair slot (its id and 13 gathered
-// floats) and 16 bytes per pixel of output. At the 1080p headline (about
-// 1.5M pair slots x 1024 pixels) that is some 3e10 FP32 operations and
-// 1.5e9 exps for about 0.1 GB moved, so FP32 issue and the SFU exp rate,
-// not memory, set the bound.
+// What bounds it on this card: operations. Every pair of a tile is
+// evaluated at all tile_size^2 pixels: its gate, about 19 FP32 operations
+// and one expf, and, only where the gate passes, 9 more to composite,
+// against about 56 bytes per pair slot (its id and 13 gathered floats) and
+// 16 bytes per pixel of output. At the 1080p headline (about 1M pairs x
+// 1024 pixels, under a tenth of them past the gate) that is some 2e10 FP32
+// operations and 1e9 exps for about 0.1 GB moved, so FP32 issue and the
+// SFU exp rate, not memory, set the bound.
 //
 // What the design does about it: one thread block per tile and one thread
 // per pixel, so the per-pixel recurrence C += rgb*alpha*T, T *= 1-alpha is a
@@ -25,19 +26,20 @@
 // TPU kernel: after a batch, __syncthreads_or over "this pixel is
 // coverable and T >= threshold" ends the tile.
 //
-// The density and compositing arithmetic uses round-to-nearest intrinsics
-// (no FMA contraction) so that every product and sum is rounded as in the
-// plain PyTorch version, whose operations are separate kernels: the alpha
-// gates are hard thresholds, and a contracted FMA could flip one.
+// The density, alpha and gate arithmetic lives in raster_common.cuh, shared
+// with the backward kernel so that it recomputes bitwise the same alphas.
+// It and the compositing use round-to-nearest intrinsics (no FMA
+// contraction) so that every product and sum is rounded as in the plain
+// PyTorch version, whose operations are separate kernels: the alpha gates
+// are hard thresholds, and a contracted FMA could flip one.
 
 #include <cuda_runtime.h>
 
+#include "raster_common.cuh"
+
 namespace {
 
-constexpr int kRowFloats = 16;  // floats per packed feature row
-constexpr int kLive = 13;       // live feature columns per row
-// Column layout of a packed feature row (ops/binning.py FEAT_*).
-enum Col { MX = 0, MY, CX, CY, CXY, OP, R, G, B, X0, Y0, X1, Y1 };
+using namespace gsplat;
 
 __global__ void raster_fwd_kernel(
     const float* __restrict__ feat,          // [N+1, 16]; row N is zero
@@ -73,36 +75,17 @@ __global__ void raster_fwd_kernel(
     const int base = b * pair_block;
     const int n = min(pair_block, count - base);
     __syncthreads();  // the previous batch is consumed before it is overwritten
-    for (int j = lin; j < n; j += blockDim.x) {
-      const float4* row = reinterpret_cast<const float4*>(
-          feat + (size_t)pair_gaussian[start + base + j] * kRowFloats);
-      const float4 a = row[0], bq = row[1], c = row[2], d = row[3];
-      const float v[kLive] = {a.x, a.y, a.z, a.w, bq.x, bq.y, bq.z, bq.w,
-                              c.x, c.y, c.z, c.w, d.x};
-#pragma unroll
-      for (int f = 0; f < kLive; ++f) sfeat[f * pair_block + j] = v[f];
-    }
+    stage_features(feat, pair_gaussian + start + base, n, sfeat, pair_block);
     __syncthreads();
     for (int j = 0; j < n; ++j) {
       const float* s = sfeat + j;
-      const float dx = __fsub_rn(s[MX * pair_block], px);
-      const float dy = __fsub_rn(s[MY * pair_block], py);
-      // density = -0.5 * (cx*dx*dx + cy*dy*dy) - cxy*dx*dy
-      const float quad = __fadd_rn(
-          __fmul_rn(__fmul_rn(s[CX * pair_block], dx), dx),
-          __fmul_rn(__fmul_rn(s[CY * pair_block], dy), dy));
-      const float density = __fsub_rn(
-          __fmul_rn(-0.5f, quad),
-          __fmul_rn(__fmul_rn(s[CXY * pair_block], dx), dy));
-      const float alpha = fminf(__fmul_rn(s[OP * pair_block], expf(density)), max_alpha);
-      const bool inside = px >= s[X0 * pair_block] && px < s[X1 * pair_block] &&
-                          py >= s[Y0 * pair_block] && py < s[Y1 * pair_block];
-      if (!(alpha > min_alpha && density <= 0.0f && inside)) continue;
-      const float w = __fmul_rn(alpha, T);
+      const PairEval e = eval_pair(s, pair_block, px, py, min_alpha, max_alpha);
+      if (!e.valid) continue;
+      const float w = __fmul_rn(e.alpha, T);
       c0 = __fadd_rn(c0, __fmul_rn(s[R * pair_block], w));
       c1 = __fadd_rn(c1, __fmul_rn(s[G * pair_block], w));
       c2 = __fadd_rn(c2, __fmul_rn(s[B * pair_block], w));
-      T = __fmul_rn(T, __fsub_rn(1.0f, alpha));
+      T = __fmul_rn(T, __fsub_rn(1.0f, e.alpha));
     }
     done = b + 1;
     if (early_stop > 0.0f && !__syncthreads_or(coverable && T >= early_stop)) break;
@@ -129,7 +112,7 @@ extern "C" int gsplat_raster_fwd(
     float min_alpha, float max_alpha, void* color, void* trans,
     void* blocks_done, void* stream) {
   if (num_tiles == 0) return 0;
-  const size_t smem = (size_t)kLive * pair_block * sizeof(float);
+  const size_t smem = (size_t)gsplat::kLive * pair_block * sizeof(float);
   raster_fwd_kernel<<<num_tiles, tile_size * tile_size, smem, (cudaStream_t)stream>>>(
       static_cast<const float*>(feat), static_cast<const int*>(pair_gaussian),
       static_cast<const int*>(tile_start), static_cast<const int*>(tile_count),

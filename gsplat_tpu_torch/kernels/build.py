@@ -4,8 +4,9 @@ Each kernel source under ``gsplat_tpu_torch/csrc/`` is compiled by ``nvcc``
 for Hopper (``sm_90a``) into a shared library with a plain C interface and
 loaded with ``ctypes``. Libraries are built at first use into
 ``build/kernels/`` at the repository root (git-ignored) and cached by a
-hash of the source and the flags, so an edited source rebuilds and an
-unchanged one loads at once. Nothing is built when a module is imported.
+hash of the source, every header under ``csrc/`` and the flags, so an
+edited source or header rebuilds and an unchanged one loads at once.
+Nothing is built when a module is imported.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 
 # Kernel name -> source file under csrc/.
-SOURCES = {"raster_fwd": "raster_fwd.cu"}
+SOURCES = {"raster_fwd": "raster_fwd.cu", "raster_bwd": "raster_bwd.cu"}
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
@@ -47,8 +48,12 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the library of kernel ``name`` lives, keyed by its source hash."""
+    """Where the library of kernel ``name`` lives, keyed by the hash of its
+    source and of every header under ``csrc/`` (a source may include any)."""
     digest = hashlib.sha256((CSRC / SOURCES[name]).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode())
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 

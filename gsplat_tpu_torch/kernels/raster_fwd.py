@@ -88,7 +88,7 @@ def forward_tiles_plain(
             def col(i):
                 return f[:, :, i, None]
 
-            alpha, valid = gaussian_alpha(
+            at = gaussian_alpha(
                 pxc, pyc, col(B.FEAT_MEAN_X), col(B.FEAT_MEAN_Y),
                 col(B.FEAT_CONIC_X), col(B.FEAT_CONIC_Y), col(B.FEAT_CONIC_XY),
                 col(B.FEAT_OPACITY),
@@ -97,7 +97,7 @@ def forward_tiles_plain(
                 (pxc >= col(B.FEAT_X_MIN)) & (pxc < col(B.FEAT_X_MAX))
                 & (pyc >= col(B.FEAT_Y_MIN)) & (pyc < col(B.FEAT_Y_MAX))
             )
-            a = torch.where(valid & inside, alpha, 0.0)  # [T, cs, npix]
+            a = torch.where(at.valid & inside, at.alpha, 0.0)  # [T, cs, npix]
             rgb = f[:, :, B.FEAT_R : B.FEAT_B + 1]  # [T, cs, 3]
             for j in range(cs):
                 w = a[:, j] * trans

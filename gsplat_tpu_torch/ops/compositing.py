@@ -9,7 +9,7 @@ containment mask: O(N * H * W), for tests only.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -23,17 +23,34 @@ MIN_ALPHA_F32 = float(np.float32(MIN_ALPHA))
 MAX_GAUSSIAN_DENSITY_F32 = float(np.float32(MAX_GAUSSIAN_DENSITY))
 
 
-def gaussian_alpha(px, py, mean_x, mean_y, conic_x, conic_y, conic_xy, opacity) -> Tuple[torch.Tensor, torch.Tensor]:
+class AlphaTerms(NamedTuple):
+    """What :func:`gaussian_alpha` returns: alpha, its gate, and the
+    intermediates the backward needs."""
+
+    dx: torch.Tensor  # mean_x - px
+    dy: torch.Tensor  # mean_y - py
+    density: torch.Tensor
+    expd: torch.Tensor  # exp(density)
+    raw: torch.Tensor  # opacity * expd, before the clamp
+    alpha: torch.Tensor  # min(raw, 0.99)
+    valid: torch.Tensor  # alpha > 1/255 and density <= 0
+
+
+def gaussian_alpha(px, py, mean_x, mean_y, conic_x, conic_y, conic_xy, opacity) -> AlphaTerms:
     """Per-pixel alpha of a broadcastable batch of gaussians
-    (rasterize.py:279-292): ``d = mean - pixel``, quadratic-form density,
-    ``alpha = min(opacity * exp(density), 0.99)``, valid when
-    ``alpha > 1/255 and density <= 0``. Returns (alpha, valid)."""
+    (rasterize.py:279-292) with its intermediates: ``d = mean - pixel``,
+    quadratic-form density, ``alpha = min(opacity * exp(density), 0.99)``,
+    valid when ``alpha > 1/255 and density <= 0``. The backward recomputes
+    alphas through this same function (the CUDA kernels through
+    ``csrc/raster_common.cuh``, which rounds alike)."""
     dx = mean_x - px
     dy = mean_y - py
     density = -0.5 * (conic_x * dx * dx + conic_y * dy * dy) - conic_xy * dx * dy
-    alpha = torch.clamp(opacity * torch.exp(density), max=MAX_GAUSSIAN_DENSITY_F32)
+    expd = torch.exp(density)
+    raw = opacity * expd
+    alpha = torch.clamp(raw, max=MAX_GAUSSIAN_DENSITY_F32)
     valid = (alpha > MIN_ALPHA_F32) & (density <= 0.0)
-    return alpha, valid
+    return AlphaTerms(dx, dy, density, expd, raw, alpha, valid)
 
 
 def render_oracle(prep: Preprocessed, width: int, height: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -49,10 +66,10 @@ def render_oracle(prep: Preprocessed, width: int, height: int) -> Tuple[torch.Te
     for g in order.tolist():
         mx, my = prep.screen_means[g]
         cx, cy, cxy = prep.conics[g]
-        alpha, valid = gaussian_alpha(px, py, mx, my, cx, cy, cxy, prep.opacity[g])
+        at = gaussian_alpha(px, py, mx, my, cx, cy, cxy, prep.opacity[g])
         x0, y0, x1, y1 = prep.bbox[g]
         inside = (px >= x0) & (px < x1) & (py >= y0) & (py < y1)
-        a = torch.where(valid & inside & prep.active[g], alpha, 0.0)
+        a = torch.where(at.valid & inside & prep.active[g], at.alpha, 0.0)
         image = image + (a * trans)[..., None] * prep.rgb[g][None, None, :]
         trans = trans * (1.0 - a)
     return image, trans

@@ -25,6 +25,7 @@ from gsplat_tpu_torch.ops.compositing import render_oracle
 from gsplat_tpu_torch.ops.projection import Preprocessed, preprocess_gaussians_from_params
 from gsplat_tpu_torch.ops.sh import sh_to_rgb
 from gsplat_tpu_torch.render.tile_torch import tiles_to_image
+from gsplat_tpu_torch.utils.stages import stage
 
 
 def preprocess_traced(
@@ -75,11 +76,14 @@ def render_traced(
     """Render one view. Returns (image ``[H, W, 3]``, transmittance
     ``[H, W]``). ``screen_offset`` ([N, 2], optional) shifts pixel-space
     means (the densifying trainer's viewspace-gradient probe)."""
-    prep = preprocess_traced(model, cam, width, height, cfg, screen_offset)
-    feat = binning.pack_features(prep)
-    bins = binning.bin_gaussians(
-        prep, width, height, cfg.tile_size, cfg.max_pairs, align=cfg.pair_block
-    )
+    with stage("preprocess"):
+        prep = preprocess_traced(model, cam, width, height, cfg, screen_offset)
+    with stage("pack_features"):
+        feat = binning.pack_features(prep)
+    with stage("binning"):
+        bins = binning.bin_gaussians(
+            prep, width, height, cfg.tile_size, cfg.max_pairs, align=cfg.pair_block
+        )
     n_tiles_x = -(-width // cfg.tile_size)
     n_tiles_y = -(-height // cfg.tile_size)
     tile_ids = torch.arange(n_tiles_x * n_tiles_y, dtype=torch.int32, device=feat.device)
@@ -87,17 +91,20 @@ def render_traced(
         feat, bins.pair_gaussian, bins.tile_start, bins.tile_count, tile_ids,
         bins.gaussian_counts, n_tiles_x, cfg, width=width, height=height,
     )
-    return (
-        tiles_to_image(color, width, height, cfg.tile_size),
-        tiles_to_image(trans, width, height, cfg.tile_size),
-    )
+    with stage("tiles_to_image"):
+        return (
+            tiles_to_image(color, width, height, cfg.tile_size),
+            tiles_to_image(trans, width, height, cfg.tile_size),
+        )
 
 
 def render(
     model: GaussianModel, camera: CameraParams, cfg: RasterConfig = RasterConfig()
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Render one view. Returns (image ``[H, W, 3]``, transmittance ``[H, W]``)."""
-    return render_traced(model, _camera_arrays(model, camera), camera.width, camera.height, cfg)
+    with stage("camera"):
+        cam = _camera_arrays(model, camera)
+    return render_traced(model, cam, camera.width, camera.height, cfg)
 
 
 def render_batch(

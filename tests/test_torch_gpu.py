@@ -1,4 +1,4 @@
-"""The port's CUDA kernel on the card, held against its plain version.
+"""The port's CUDA kernels on the card, held against their plain versions.
 
 Every test here needs a CUDA device and skips without one. This file
 imports neither JAX nor the JAX package (nor ``fixtures.py``), so it also
@@ -6,8 +6,16 @@ runs where only PyTorch is installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py -m gpu
 
-Kernel and plain version round every product and sum alike, so they are
-compared at rtol=1e-5 / atol=1e-6 and ``blocks_done`` must be equal.
+The forward kernel and its plain version round every product and sum
+alike, so they are compared at rtol=1e-5 / atol=1e-6 and ``blocks_done``
+must be equal. The backward kernel's per-pixel terms are rounded as in its
+plain version too, but it sums them over a tile's pixels in another order
+(warp shuffles, then warps in order). A sum of n f32 terms in another order
+differs by up to about log2(n) * 6e-8 of the sum of the terms' magnitudes,
+which exceeds the result where terms cancel (d conic at a pixel grows with
+dx^2), so per-pair rows and reduced gradients are compared at rtol=1e-4 /
+atol=1e-5 of the gradient's largest magnitude, and two runs of the kernel
+must be bitwise equal.
 """
 
 import dataclasses
@@ -18,6 +26,7 @@ import pytest
 import torch
 
 import gsplat_tpu_torch as tgs
+from gsplat_tpu_torch.kernels.raster_bwd import backward_tiles, backward_tiles_plain, reduce_pair_grads
 from gsplat_tpu_torch.kernels.raster_fwd import forward_tiles, forward_tiles_plain
 from gsplat_tpu_torch.ops import binning
 from gsplat_tpu_torch.render.pipeline import preprocess
@@ -62,12 +71,13 @@ def binned(device):
         bins = binning.bin_gaussians(prep, WIDTH, HEIGHT, CFG.tile_size, CFG.max_pairs, align=CFG.pair_block)
         ntx = -(-WIDTH // CFG.tile_size)
         tile_ids = torch.arange(ntx * -(-HEIGHT // CFG.tile_size), dtype=torch.int32, device=device)
-        return (binning.pack_features(prep), bins.pair_gaussian, bins.tile_start, bins.tile_count, tile_ids), ntx
+        return (binning.pack_features(prep), bins.pair_gaussian, bins.tile_start, bins.tile_count, tile_ids), ntx, \
+            bins.gaussian_counts
 
 
 @pytest.mark.parametrize("threshold", [0.0, 1e-4, 0.3])
 def test_kernel_matches_plain(binned, threshold):
-    args, ntx = binned
+    args, ntx, _ = binned
     cfg = dataclasses.replace(CFG, early_stop_transmittance=threshold)
     before = forward_tiles.launches
     got = forward_tiles(*args, ntx, cfg, WIDTH, HEIGHT)
@@ -94,8 +104,60 @@ def test_render_on_card_matches_oracle(device):
 
 
 def test_kernel_rejects_bad_inputs(binned):
-    (feat, *rest), ntx = binned
+    (feat, *rest), ntx, _ = binned
     with pytest.raises(ValueError, match="pair_gaussian"):
         forward_tiles(feat, rest[0].long(), *rest[1:], ntx, CFG)
     with pytest.raises(ValueError, match="feat"):
         forward_tiles(feat[:, :8].contiguous(), *rest, ntx, CFG)
+
+
+def _close_to_max(got, want):
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("threshold", [0.0, 1e-4])
+def test_backward_kernel_matches_plain(binned, threshold):
+    args, ntx, counts = binned
+    cfg = dataclasses.replace(CFG, early_stop_transmittance=threshold)
+    color, trans, done = forward_tiles(*args, ntx, cfg, WIDTH, HEIGHT)
+    gen = torch.Generator(device=args[0].device).manual_seed(0)
+    g_color = torch.randn(color.shape, generator=gen, device=color.device)
+    g_trans = torch.randn(trans.shape, generator=gen, device=color.device)
+    outs = (color, trans, g_color, g_trans)
+    before = backward_tiles.launches
+    rows = backward_tiles(*args, *outs, ntx, cfg, done)
+    again = backward_tiles(*args, *outs, ntx, cfg, done)
+    torch.cuda.synchronize()
+    assert backward_tiles.launches == before + 2
+    want = backward_tiles_plain(*args, *outs, ntx, cfg, done)
+    _close_to_max(rows, want)
+    assert torch.equal(rows, again)
+    n_rows = args[0].shape[0]
+    for gaussian_counts in (counts, None):
+        got = reduce_pair_grads(rows, args[1], gaussian_counts, n_rows)
+        _close_to_max(got, reduce_pair_grads(want, args[1], gaussian_counts, n_rows))
+    assert torch.equal(reduce_pair_grads(rows, args[1], counts, n_rows), reduce_pair_grads(again, args[1], counts, n_rows))
+
+
+def test_render_grads_on_card_match_cpu(device):
+    """Autograd through ``render`` on the card (both kernels) against the
+    same model on the CPU (both plain versions)."""
+    model, camera = scene(device, n=300, grow=0.0, seed=7)
+    cpu_model = tgs.GaussianModel.from_arrays(model.to_arrays(), device="cpu")
+    grads = []
+    for m in (model, cpu_model):
+        img, trans = tgs.render(m, camera, CFG)
+        grads.append(torch.autograd.grad((img * img).sum() + trans.sum(), list(m.parameters())))
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got.cpu(), want, rtol=2e-3, atol=5e-5 * float(want.abs().max()))
+
+
+def test_backward_kernel_rejects_bad_inputs(binned):
+    args, ntx, _ = binned
+    color, trans, done = forward_tiles(*args, ntx, CFG)
+    with pytest.raises(ValueError, match="g_color"):
+        backward_tiles(*args, color, trans, color[:, :, :2].contiguous(), trans, ntx, CFG, done)
+    with pytest.raises(ValueError, match="blocks_done"):
+        backward_tiles(*args, color, trans, color, trans, ntx, CFG, done.long())
+    with pytest.raises(ValueError, match="not supported"):
+        backward_tiles(*args, color, trans, color, trans, ntx, dataclasses.replace(CFG, tile_size=4), done)

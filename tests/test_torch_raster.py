@@ -27,6 +27,7 @@ from gsplat_tpu.render.tile_jnp import tiles_to_image as j_tiles_to_image
 
 from gsplat_tpu_torch import RasterConfig
 from gsplat_tpu_torch.kernels.raster import rasterize_tiles
+from gsplat_tpu_torch.kernels.raster_bwd import backward_tiles_plain, reduce_pair_grads
 from gsplat_tpu_torch.kernels.raster_fwd import forward_tiles, forward_tiles_plain
 from gsplat_tpu_torch.render.tile_torch import image_to_tiles, tile_pixel_coords, tiles_to_image
 
@@ -106,12 +107,26 @@ def test_dispatch_on_cpu_is_the_plain_version(binned):
 
 
 def test_rasterize_tiles_is_forward_only(binned):
-    _, (feat, *rest) = binned
+    """Under grad, ``rasterize_tiles``' gradient to ``feat`` is the plain
+    backward + the sort-based reduction (the backward kernel's plain path on
+    the CPU); without grad it is the forward alone, with nothing saved."""
+    _, (feat, pair_gaussian, tile_start, tile_count, tile_ids) = binned
+    counts = torch.bincount(pair_gaussian.long(), minlength=feat.shape[0])[:-1].to(torch.int32)
+    rng = np.random.default_rng(0)
     feat = feat.clone().requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        rasterize_tiles(feat, *rest, torch.zeros(0, dtype=torch.int32), NTX, CFG)
+    args = (feat, pair_gaussian, tile_start, tile_count, tile_ids)
+    color, trans = rasterize_tiles(*args, counts, NTX, CFG)
+    g_color = torch.from_numpy(rng.normal(size=color.shape).astype(np.float32))
+    g_trans = torch.from_numpy(rng.normal(size=trans.shape).astype(np.float32))
+    (d_feat,) = torch.autograd.grad((color, trans), feat, (g_color, g_trans))
     with torch.no_grad():
-        rasterize_tiles(feat, *rest, torch.zeros(0, dtype=torch.int32), NTX, CFG)
+        rows = backward_tiles_plain(*args, color, trans, g_color, g_trans, NTX, CFG)
+        want = reduce_pair_grads(rows, pair_gaussian, counts, feat.shape[0])
+    torch.testing.assert_close(d_feat, want, rtol=0, atol=0)
+    assert d_feat.abs().max() > 0
+    with torch.no_grad():
+        color, trans = rasterize_tiles(*args, counts, NTX, CFG)
+    assert color.grad_fn is None and trans.grad_fn is None
 
 
 @pytest.mark.parametrize("width,height,channels", [(48, 32, (3,)), (50, 35, ()), (17, 40, (2, 2))])
