@@ -80,6 +80,13 @@ BWD_PASSED_FP32_OPS = 43
 WIDTH, HEIGHT = 1920, 1080
 NUM_GAUSSIANS = 1_000_000
 CAPACITY_FLOOR = 1 << 17
+# The real-MipNeRF-360-density point and its depth-sliced production
+# settings (bench.py:146-158, 349-382): 5M gaussians at scale shift 1.9,
+# early stop 1e-4, capacity 1.1x the demand.
+REAL_N = 5_000_000
+REAL_SHIFT = 1.9
+REAL_SLICE = 1 << 19
+REAL_REDUCE = 1 << 20
 
 
 def emit(obj) -> None:
@@ -282,11 +289,14 @@ def compositor_bound(walked: int, passed: int, nbytes: int, backward: bool) -> d
 
 def stage_breakdown(fn, runs: int = 5) -> dict:
     """The median CUDA-event milliseconds of each stage that one ``fn()``
-    marks (``gsplat_tpu_torch/utils/stages.py``), over ``runs`` calls. A
-    training step's backward is also split at its marked stages: from its
-    start to the backward kernel (the loss's and the image assembly's
-    backward: "loss_backward"), and from the reduction's end to its own
-    (autograd through pack_features and the preprocess: "preprocess_backward")."""
+    marks (``gsplat_tpu_torch/utils/stages.py``), over ``runs`` calls; a
+    stage marked several times in one call (the depth-sliced path marks each
+    slice) counts the sum of its spans. A training step's backward is also
+    split at its marked stages: from its start to the first backward kernel
+    (the loss's and the image assembly's backward, and on the sliced path
+    the compact reduction's host sync: "loss_backward"), and from the last
+    reduction's end to its own (autograd through pack_features and the
+    preprocess: "preprocess_backward")."""
     import torch
 
     from gsplat_tpu_torch.utils.stages import record_stages
@@ -296,11 +306,13 @@ def stage_breakdown(fn, runs: int = 5) -> dict:
         with record_stages() as spans:
             fn()
         torch.cuda.synchronize()
-        ev = {name: (start, end) for name, start, end in spans}
-        ms = {name: start.elapsed_time(end) for name, (start, end) in ev.items()}
+        ev = {}
+        for name, start, end in spans:
+            ev.setdefault(name, []).append((start, end))
+        ms = {name: sum(start.elapsed_time(end) for start, end in v) for name, v in ev.items()}
         if "backward" in ev:
-            ms["loss_backward"] = ev["backward"][0].elapsed_time(ev["raster_bwd"][0])
-            ms["preprocess_backward"] = ev["reduction"][1].elapsed_time(ev["backward"][1])
+            ms["loss_backward"] = ev["backward"][0][0].elapsed_time(ev["raster_bwd"][0][0])
+            ms["preprocess_backward"] = ev["reduction"][-1][1].elapsed_time(ev["backward"][0][1])
         for name, value in ms.items():
             samples.setdefault(name, []).append(value)
     return {name: statistics.median(v) for name, v in samples.items()}
@@ -327,6 +339,68 @@ def request_breakdown(model, camera, cfg, runs: int = 5) -> dict:
     return out
 
 
+def sliced_records(model, camera, cfg):
+    """One depth-sliced forward through the port's stages, keeping what the
+    slice loop records: (feat, color, trans, records; ``render/sliced.py``)."""
+    import gsplat_tpu_torch as gs
+    from gsplat_tpu_torch.ops import binning
+    from gsplat_tpu_torch.render import sliced
+    from gsplat_tpu_torch.render.pipeline import preprocess_traced
+
+    w, h, ts = camera.width, camera.height, cfg.tile_size
+    prep = preprocess_traced(model, gs.CameraArrays.from_params(camera, device=model.means.device), w, h, cfg)
+    feat = binning.pack_features(prep)
+    d = sliced._prepare_sliced(prep, ts, -(-w // ts), -(-h // ts))
+    return (feat, *sliced._forward_impl(feat, d, w, h, cfg))
+
+
+def carry_chain(feat, rec, n_tiles_x, cfg, width, height, g_color, g_trans) -> dict:
+    """Walk the recorded slices through both carry kernels and their plain
+    versions, each from the kernel chain's state before the slice: the
+    forward's colour and T at rtol 1e-5 / atol 1e-6 with ``blocks_done``
+    equal to the kernel's and to the record; the backward's rows and
+    reduced ``d_feat`` by ``rows_error``, its T at rtol 1e-5 / atol 1e-6 and
+    its S by ``rows_error``. Returns the largest errors and the chain's end."""
+    import torch
+
+    from gsplat_tpu_torch.kernels.raster_bwd import backward_tiles_carry, backward_tiles_plain, reduce_sorted, walk_state
+    from gsplat_tpu_torch.kernels.raster_fwd import forward_tiles_carry, forward_tiles_plain
+
+    num_t, npix = g_trans.shape
+    tile_ids = torch.arange(num_t, dtype=torch.int32, device=feat.device)
+    carry = (torch.zeros(num_t, npix, 3, device=feat.device), torch.ones(num_t, npix, device=feat.device))
+    out = {"fwd_max_abs_err": 0.0, "rows_max_abs_err": 0.0, "state_max_abs_err": 0.0}
+    for k in range(len(rec.ids)):
+        args = (feat, rec.ids[k], rec.starts[k], rec.countc[k], tile_ids)
+        got = forward_tiles_carry(*args, *carry, n_tiles_x, cfg, width, height)
+        torch.cuda.synchronize()
+        want = forward_tiles_plain(*args, n_tiles_x, cfg, width, height, carry=carry)
+        torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-6)
+        check(torch.equal(got[2], want[2]) and torch.equal(got[2], rec.bdone[k]), f"slice {k} blocks_done")
+        out["fwd_max_abs_err"] = max(out["fwd_max_abs_err"], float((got[0] - want[0]).abs().max()),
+                                     float((got[1] - want[1]).abs().max()))
+        carry = got[:2]
+    state = walk_state(*carry, g_color, g_trans)
+    n_rows = feat.shape[0]
+    d_feat = p_feat = torch.zeros(n_rows, 16, device=feat.device)
+    for k in range(len(rec.ids)):
+        args = (feat, rec.ids[k], rec.starts[k], rec.countc[k], tile_ids)
+        rows, s_out = backward_tiles_carry(*args, state, g_color, n_tiles_x, cfg, rec.bdone[k])
+        torch.cuda.synchronize()
+        p_rows, p_out = backward_tiles_plain(*args, None, None, g_color, None, n_tiles_x, cfg, rec.bdone[k], state)
+        out["rows_max_abs_err"] = max(out["rows_max_abs_err"], rows_error(rows, p_rows, f"slice {k} rows")["max_abs_err"])
+        torch.testing.assert_close(s_out[:, 1], p_out[:, 1], rtol=1e-5, atol=1e-6)
+        err = rows_error(s_out[:, 0].reshape(-1, 1), p_out[:, 0].reshape(-1, 1), f"slice {k} S")["max_abs_err"]
+        out["state_max_abs_err"] = max(out["state_max_abs_err"], err, float((s_out[:, 1] - p_out[:, 1]).abs().max()))
+        d_feat = d_feat + reduce_sorted(rows, rec.ids[k], n_rows)
+        p_feat = p_feat + reduce_sorted(p_rows, rec.ids[k], n_rows)
+        state = s_out
+    out["d_feat"] = rows_error(d_feat, p_feat, "sliced d_feat")
+    out["color"], out["trans"] = carry
+    return out
+
+
 def main() -> int:
     t_main = time.perf_counter()
     import torch
@@ -344,8 +418,10 @@ def main() -> int:
 
     import gsplat_tpu_torch as gs
     from gsplat_tpu_torch.kernels import build
-    from gsplat_tpu_torch.kernels.raster_bwd import backward_tiles, backward_tiles_plain, reduce_pair_grads
-    from gsplat_tpu_torch.kernels.raster_fwd import forward_tiles, forward_tiles_plain
+    from gsplat_tpu_torch.kernels.raster_bwd import (
+        backward_tiles, backward_tiles_carry, backward_tiles_plain, reduce_pair_grads, walk_state, written_slots,
+    )
+    from gsplat_tpu_torch.kernels.raster_fwd import forward_tiles, forward_tiles_carry, forward_tiles_plain
     from gsplat_tpu_torch.render.tile_torch import tiles_to_image
 
     dev = torch.device("cuda")
@@ -579,6 +655,187 @@ def main() -> int:
     })
     emit({"phase": "train", **train})
 
+    # -- phase 7: the carry kernels vs plain, small; sliced vs single-sort --
+    sliced_small = {}
+    model = build_scene(20_000, 2.5, dev)
+    cam_s = bench_camera(256, 192)
+    for stop in (0.0, 1e-4):
+        scfg = dataclasses.replace(small_cfg, max_pairs=1 << 19, early_stop_transmittance=stop, slice_pairs=1 << 14)
+        with torch.inference_mode():
+            feat, color, trans, rec = sliced_records(model, cam_s, scfg)
+            g_color, g_trans = random_cotangents(color, trans, seed=4)
+            chain = carry_chain(feat, rec, 8, scfg, 256, 192, g_color, g_trans)
+            check(torch.equal(chain.pop("color"), color) and torch.equal(chain.pop("trans"), trans),
+                  "the checked chain ends at the sliced forward's frame")
+            forward_tiles.launches = forward_tiles_carry.launches = 0
+            img, img_trans = gs.render(model, cam_s, scfg)
+            check((forward_tiles.launches, forward_tiles_carry.launches) == (0, len(rec.ids)),
+                  f"a sliced request launches k_exec carry kernels: {forward_tiles_carry.launches}")
+            check(torch.equal(img, tiles_to_image(color, 256, 192, 32)), "the request's frame is the checked one")
+            if stop == 0.0:
+                single = gs.render(model, cam_s, dataclasses.replace(scfg, slice_pairs=0))
+                check(torch.equal(img, single[0]) and torch.equal(img_trans, single[1]),
+                      "early stop off: the sliced frame equals the single-sort frame bitwise")
+        runs = []
+        for _ in range(2):  # under grad: the whole sliced render and its backward, twice
+            r_img, r_trans = gs.render(model, cam_s, dataclasses.replace(scfg, reduce_pairs=1 << 15))
+            loss = (r_img * tiles_to_image(g_color, 256, 192, 32)).sum() + (r_trans * tiles_to_image(g_trans, 256, 192, 32)).sum()
+            runs.append((r_img.detach(), *torch.autograd.grad(loss, list(model.parameters()))))
+        check(all(torch.equal(a, b) for a, b in zip(*runs)), f"two sliced runs bitwise equal (early stop {stop})")
+        sliced_small[f"stop_{stop}"] = {"k_exec": len(rec.ids), "host_syncs": rec.host_syncs,
+                                        "gb": [int(g) for g in rec.gb], **chain}
+    check(sliced_small["stop_0.0"]["k_exec"] > 1 and sliced_small["stop_0.0001"]["k_exec"] > 1,
+          "phase 7 runs several slices")
+    emit({"phase": "sliced_small", **sliced_small})
+
+    # -- phase 8: the real-density configuration, sliced and single-sort --
+    from gsplat_tpu_torch.ops import binning
+    from gsplat_tpu_torch.render.pipeline import preprocess
+
+    real = {}
+    model = build_scene(REAL_N, REAL_SHIFT, dev)
+    with torch.inference_mode():
+        demand = int(gs.binning_stats(model, gs.CameraArrays.from_params(cam0, device=dev), WIDTH, HEIGHT, probe)["pair_demand"])
+    real_cap = max(int(demand * 1.1) // 128 * 128, CAPACITY_FLOOR)
+    rcfg = gs.RasterConfig(tile_size=32, chunk_size=32, pair_block=128, max_pairs=real_cap, sh_degree=3,
+                           early_stop_transmittance=1e-4, slice_pairs=REAL_SLICE, reduce_pairs=REAL_REDUCE)
+    ss_cfg = dataclasses.replace(rcfg, slice_pairs=0, reduce_pairs=real_cap // 4)
+    real.update({"num_gaussians": REAL_N, "scale_shift": REAL_SHIFT, "pair_demand": demand,
+                 "pairs_per_gaussian": demand / REAL_N, "capacity": real_cap})
+    with torch.inference_mode():
+        gs.render(model, cam0, rcfg)  # warm-up
+        torch.cuda.synchronize()
+        requests, frames, fwd_carry_launches = [], [], 0
+        for name, yaw in poses:
+            camera = bench_camera(WIDTH, HEIGHT, yaw)
+            _, _, _, rec = sliced_records(model, camera, rcfg)
+            forward_tiles.launches = forward_tiles_carry.launches = backward_tiles_carry.launches = 0
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            host0 = time.perf_counter()
+            start.record()
+            img, trans = gs.render(model, camera, rcfg)
+            end.record()
+            torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - host0) * 1e3
+            check((forward_tiles.launches, forward_tiles_carry.launches, backward_tiles_carry.launches)
+                  == (0, len(rec.ids), 0), f"request {name}: k_exec carry launches and no other")
+            fwd_carry_launches += forward_tiles_carry.launches
+            check(img.shape == (HEIGHT, WIDTH, 3) and bool(torch.isfinite(img).all() and torch.isfinite(trans).all()),
+                  "finite frame")
+            check(float(trans.min()) >= 0.0 and float(trans.max()) <= 1.0, "transmittance in [0, 1]")
+            frames.append(img)
+            requests.append({"pose": name, "ms": start.elapsed_time(end), "host_ms": host_ms, "k_exec": len(rec.ids),
+                             "host_syncs_in_loop": rec.host_syncs, "gb": [int(g) for g in rec.gb]})
+        # The bench pose: slices, blocks, and the first slice's kernels against their plain versions.
+        feat, color, trans, rec = sliced_records(model, cam0, rcfg)
+        bins = binning.bin_gaussians(preprocess(model, cam0, rcfg), WIDTH, HEIGHT, 32, real_cap, align=128)
+        all_blocks = int((-(-bins.tile_count.long() // 128)).sum())
+        composited = [int(b.sum()) for b in rec.bdone]
+        real.update({"k_exec": len(rec.ids), "composited_blocks": composited,
+                     "composited_share_of_single_sort_blocks": sum(composited) / all_blocks,
+                     "single_sort_blocks": all_blocks,
+                     "compact_overflow": sum(composited) > REAL_REDUCE // 128})
+        single = gs.render(model, cam0, ss_cfg)
+        diff = float((frames[0] - single[0]).abs().max())
+        check(diff <= 1e-4, f"sliced frame within 1e-4 of the single-sort frame: {diff}")
+        real["sliced_vs_single_sort_max_abs_diff"] = diff
+        ntx = -(-WIDTH // 32)
+        tile_ids = torch.arange(len(rec.starts[0]), dtype=torch.int32, device=dev)
+        args0 = (feat, rec.ids[0], rec.starts[0], rec.countc[0], tile_ids)
+        zero = (torch.zeros_like(color), torch.ones_like(trans))
+        k_out = forward_tiles_carry(*args0, *zero, ntx, rcfg, WIDTH, HEIGHT)
+        torch.cuda.synchronize()
+        p_out = forward_tiles_plain(*args0, ntx, rcfg, WIDTH, HEIGHT, carry=zero)
+        err = tiles_to_image(torch.maximum((k_out[0] - p_out[0]).abs().amax(-1), (k_out[1] - p_out[1]).abs()),
+                             WIDTH, HEIGHT, 32)
+        check(int((err <= 1e-4).sum()) >= 0.99999 * err.numel() and float(err.max()) <= 5e-3,
+              f"first slice forward carry: max error {float(err.max())}")
+        check(torch.equal(k_out[2], p_out[2]) and torch.equal(k_out[2], rec.bdone[0]), "first slice blocks_done")
+        fwd_carry_err = float(err.max())
+        g_color, g_trans = random_cotangents(color, trans, seed=5)
+        state = walk_state(color, trans, g_color, g_trans)
+        rows, s_out = backward_tiles_carry(*args0, state, g_color, ntx, rcfg, rec.bdone[0])
+        torch.cuda.synchronize()
+        p_rows, p_state = backward_tiles_plain(*args0, None, None, g_color, None, ntx, rcfg, rec.bdone[0], state)
+        real["first_slice_bwd"] = {"rows": rows_error(rows, p_rows, "first slice rows"),
+                                   "S": rows_error(s_out[:, 0].reshape(-1, 1), p_state[:, 0].reshape(-1, 1), "first slice S")}
+        torch.testing.assert_close(s_out[:, 1], p_state[:, 1], rtol=1e-5, atol=1e-6)
+        fwd_carry_ms = cuda_ms(lambda: forward_tiles_carry(*args0, *zero, ntx, rcfg, WIDTH, HEIGHT), 20)
+        fwd_carry_plain_ms = cuda_ms(lambda: forward_tiles_plain(*args0, ntx, rcfg, WIDTH, HEIGHT, carry=zero), 3)
+        bwd_carry_ms = cuda_ms(lambda: backward_tiles_carry(*args0, state, g_color, ntx, rcfg, rec.bdone[0]), 20)
+        bwd_carry_plain_ms = cuda_ms(lambda: backward_tiles_plain(
+            *args0, None, None, g_color, None, ntx, rcfg, rec.bdone[0], state), 3)
+        # Bytes the first slice needs: the feature rows of the gaussians its
+        # walked pairs name, its pair ids, four words per tile (start,
+        # count, id, blocks_done), and per pixel the forward's colour and T
+        # in and out (32 B) or the backward's state in and out and colour
+        # cotangent (28 B); the backward also writes its [P, 9] rows.
+        walked = written_slots(rec.starts[0], rec.bdone[0], composited[0], 128)
+        common = (int(torch.unique(rec.ids[0][walked]).numel()) * 64 + rec.ids[0].numel() * 4
+                  + len(tile_ids) * 16)
+        counts0 = pair_pixels(args0, ntx, rcfg, rec.bdone[0])
+        fwd_carry_bound = compositor_bound(*counts0, common + color.numel() // 3 * 32, backward=False)
+        bwd_carry_bound = compositor_bound(*counts0, common + color.numel() // 3 * 28 + rec.ids[0].numel() * 36,
+                                           backward=True)
+        real["sliced_request"] = {
+            "stage_ms": stage_breakdown(lambda: gs.render(model, cam0, rcfg)),
+            "request_ms": cuda_ms(lambda: gs.render(model, cam0, rcfg), 5),
+            "device_busy_ms": device_busy_ms(lambda: gs.render(model, cam0, rcfg)),
+            "host_syncs": host_syncs(lambda: gs.render(model, cam0, rcfg))}
+        real["single_sort_request"] = {
+            "stage_ms": stage_breakdown(lambda: gs.render(model, cam0, ss_cfg)),
+            "request_ms": cuda_ms(lambda: gs.render(model, cam0, ss_cfg), 5),
+            "device_busy_ms": device_busy_ms(lambda: gs.render(model, cam0, ss_cfg)),
+            "host_syncs": host_syncs(lambda: gs.render(model, cam0, ss_cfg))}
+        del feat, color, trans, rec, bins, single, k_out, p_out, err, state, rows, s_out, p_rows, p_state, frames
+    real.update({"requests": requests, "forward_carry_ms": fwd_carry_ms, "forward_carry_plain_ms": fwd_carry_plain_ms,
+                 "forward_carry_bound": fwd_carry_bound, "backward_carry_ms": bwd_carry_ms,
+                 "backward_carry_plain_ms": bwd_carry_plain_ms, "backward_carry_bound": bwd_carry_bound,
+                 "first_slice_forward_max_abs_err": fwd_carry_err})
+
+    target = torch.full((HEIGHT, WIDTH, 3), 0.25, device=dev)
+    trainer = gs.Trainer(raster=rcfg, train=gs.TrainConfig(ssim_weight=0.2, steps=3, log_every=1), show_progress=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    forward_tiles.launches = backward_tiles.launches = forward_tiles_carry.launches = backward_tiles_carry.launches = 0
+    model, history = trainer.fit(model, [(bench_camera(WIDTH, HEIGHT, yaw), target) for _, yaw in poses])
+    torch.cuda.synchronize()
+    real_launches = {"raster_fwd": forward_tiles.launches, "raster_bwd": backward_tiles.launches,
+                     "raster_fwd_carry": forward_tiles_carry.launches, "raster_bwd_carry": backward_tiles_carry.launches}
+    check(len(history) == 3 and all(math.isfinite(h["loss"]) for h in history), f"finite losses: {history}")
+    check(real_launches["raster_fwd"] == real_launches["raster_bwd"] == 0
+          and real_launches["raster_fwd_carry"] == real_launches["raster_bwd_carry"] >= 3,
+          f"each fit step walks back the slices it ran: {real_launches}")
+    check(trainer.raster == rcfg, "no capacity resize at 1.1x demand")
+    optimizer = trainer.init_state(model)
+    trainer.train_step(model, optimizer, cam0, target)  # warm-up of a fresh optimizer
+    with torch.inference_mode():
+        k_step = len(sliced_records(model, cam0, rcfg)[3].ids)
+    forward_tiles_carry.launches = backward_tiles_carry.launches = 0
+    trainer.train_step(model, optimizer, cam0, target)
+    torch.cuda.synchronize()
+    check((forward_tiles_carry.launches, backward_tiles_carry.launches) == (k_step, k_step),
+          f"a step launches k_exec ({k_step}) of each carry kernel: "
+          f"{forward_tiles_carry.launches}, {backward_tiles_carry.launches}")
+    real["sliced_step"] = {
+        "k_exec": k_step, "losses": [h["loss"] for h in history], "fit_launches": real_launches,
+        "step_ms": cuda_ms(lambda: trainer.train_step(model, optimizer, cam0, target), 5),
+        "device_busy_ms": device_busy_ms(lambda: trainer.train_step(model, optimizer, cam0, target)),
+        "host_syncs": host_syncs(lambda: trainer.train_step(model, optimizer, cam0, target)),
+        "stage_ms": stage_breakdown(lambda: trainer.train_step(model, optimizer, cam0, target)),
+        "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    ss_trainer = gs.Trainer(raster=ss_cfg, train=trainer.train, show_progress=False)
+    torch.cuda.reset_peak_memory_stats()
+    ss_trainer.train_step(model, optimizer, cam0, target)  # warm-up
+    real["single_sort_step"] = {
+        "step_ms": cuda_ms(lambda: ss_trainer.train_step(model, optimizer, cam0, target), 5),
+        "device_busy_ms": device_busy_ms(lambda: ss_trainer.train_step(model, optimizer, cam0, target)),
+        "host_syncs": host_syncs(lambda: ss_trainer.train_step(model, optimizer, cam0, target)),
+        "stage_ms": stage_breakdown(lambda: ss_trainer.train_step(model, optimizer, cam0, target)),
+        "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    real["elapsed_s"] = time.perf_counter() - t_main  # since main() began, the build included
+    emit({"phase": "real_density", **real})
+
     print(smi, flush=True)
     emit({"kernels": [
         {
@@ -592,6 +849,19 @@ def main() -> int:
             "replaces": "gsplat_tpu/kernels/raster_bwd.py:45", "launches": train_launches["raster_bwd"],
             "max_abs_err": frame["rows"]["max_abs_err"], "ms": bwd_ms, "plain_ms": bwd_plain_ms,
             "bound_ms": bwd_bound["bound_ms"], "bound_by": bwd_bound["bound_by"], "library_ms": None,
+        },
+        {
+            "name": "raster_fwd_carry", "route": "cuda", "source": "gsplat_tpu_torch/csrc/raster_fwd.cu",
+            "replaces": "gsplat_tpu/kernels/raster_fwd.py:266", "launches": fwd_carry_launches,
+            "max_abs_err": fwd_carry_err, "ms": fwd_carry_ms, "plain_ms": fwd_carry_plain_ms,
+            "bound_ms": fwd_carry_bound["bound_ms"], "bound_by": fwd_carry_bound["bound_by"], "library_ms": None,
+        },
+        {
+            "name": "raster_bwd_carry", "route": "cuda", "source": "gsplat_tpu_torch/csrc/raster_bwd.cu",
+            "replaces": "gsplat_tpu/kernels/raster_bwd.py:339", "launches": real_launches["raster_bwd_carry"],
+            "max_abs_err": real["first_slice_bwd"]["rows"]["max_abs_err"], "ms": bwd_carry_ms,
+            "plain_ms": bwd_carry_plain_ms, "bound_ms": bwd_carry_bound["bound_ms"],
+            "bound_by": bwd_carry_bound["bound_by"], "library_ms": None,
         },
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

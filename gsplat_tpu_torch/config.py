@@ -50,9 +50,18 @@ class RasterConfig:
         The reference has no early stop, so parity runs use 0.0.
       strict_parity: skip gaussians where *any* conic coefficient is zero,
         as the reference does (rasterize.py:441).
-      reduce_pairs: capacity of the compacted gradient reduction; not
-        ported yet, must be 0.
-      slice_pairs: depth-sliced rendering; not ported yet, must be 0.
+      reduce_pairs: pair capacity of the compacted gradient reduction (0 =
+        off). With early stop the forward composites only a few percent of
+        the pair blocks at real-scene density; the backward then gathers
+        just the blocks it wrote into a buffer of at most this many pairs
+        and reduces those. When a frame's composited blocks exceed it, the
+        full reduction runs instead (exact either way).
+      slice_pairs: depth-sliced rendering (``render/sliced.py``; 0 = the
+        single-sort pipeline): pairs are binned and composited in
+        front-to-back depth slices of this many pairs (a ``pair_block``
+        multiple, and at least the frame's tile count), stopping once every
+        tile's transmittance is below ``early_stop_transmittance``. At most
+        ``ceil(max_pairs / slice_pairs)`` slices run.
     """
 
     tile_size: int = 32
@@ -66,15 +75,10 @@ class RasterConfig:
     slice_pairs: int = 0
 
     def __post_init__(self):
-        if self.slice_pairs > 0:
-            raise NotImplementedError(
-                "slice_pairs > 0 (the depth-sliced path) is not ported yet; "
-                "use slice_pairs=0"
-            )
-        if self.reduce_pairs > 0:
-            raise NotImplementedError(
-                "reduce_pairs > 0 (the compacted gradient reduction) is not "
-                "ported yet; use reduce_pairs=0"
+        if self.slice_pairs > 0 and self.slice_pairs % self.pair_block != 0:
+            raise ValueError(
+                f"slice_pairs ({self.slice_pairs}) must be a multiple of "
+                f"pair_block ({self.pair_block})"
             )
         if self.pair_block % self.chunk_size != 0:
             raise ValueError(

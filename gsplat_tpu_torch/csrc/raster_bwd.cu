@@ -1,8 +1,9 @@
 // Backward tile compositor for Hopper (sm_90a), bound to Python through a
 // plain C entry point (ctypes; see gsplat_tpu_torch/kernels/build.py).
 //
-// Replaces the TPU kernel gsplat_tpu/kernels/raster_bwd.py::_bwd_kernel as
-// entered through backward_tiles_pallas: per tile, a recompute-based walk
+// Replaces the TPU kernel gsplat_tpu/kernels/raster_bwd.py::_bwd_kernel,
+// both as entered through backward_tiles_pallas and in its carry form
+// (backward_tiles_carry): per tile, a recompute-based walk
 // over the tile's depth-ordered pairs, front to back as in the forward,
 // that turns the cotangents of colour and final transmittance into nine
 // per-pair gradients (d mean x/y, d conic x/y/xy, d opacity, d rgb) in the
@@ -11,7 +12,11 @@
 // does), not through the TPU kernel's MXU moment re-expansion, which
 // exists only to use the matrix unit and costs accuracy.
 //
-// Per pixel, in registers: S = sum_ch g_ch*C_ch + g_T*T_final, T = 1; for
+// Per pixel, in registers: S = sum_ch g_ch*C_ch + g_T*T_final, T = 1 (the
+// walk state; in the carry form it is read from carry_in, the state after
+// the previous depth slice of render/sliced.py, and written to carry_out
+// after this slice's walk, so the slices walked in order take every step
+// of one walk over the whole frame); for
 // each pair, with a = valid ? alpha : 0, T_k = T, w = a*T_k,
 // u = sum_ch rgb_ch*g_ch:
 //   S -= w*u;  d_a = valid ? u*T_k - S/(1-a) : 0  (1-a >= 0.01);
@@ -73,9 +78,11 @@ __global__ void raster_bwd_kernel(
     const float* __restrict__ trans,         // [T, npix] forward final T
     const float* __restrict__ g_color,       // [T, npix, 3] cotangent
     const float* __restrict__ g_trans,       // [T, npix] cotangent
+    const float* __restrict__ carry_in,      // [T, 2, npix] (S, T), or null
     int n_tiles_x, int tile_size, int pair_block, float min_alpha,
     float max_alpha,
-    float* __restrict__ pair_grads)          // [P, 9], zero-filled
+    float* __restrict__ pair_grads,          // [P, 9], zero-filled
+    float* __restrict__ carry_out)           // [T, 2, npix], or null
 {
   extern __shared__ float smem[];
   float* sfeat = smem;                     // [kLive][pair_block]
@@ -96,11 +103,17 @@ __global__ void raster_bwd_kernel(
 
   const size_t p = (size_t)t * npix + lin;
   const float g0 = g_color[p * 3 + 0], g1 = g_color[p * 3 + 1], g2 = g_color[p * 3 + 2];
-  float S = __fadd_rn(
-      __fadd_rn(__fadd_rn(__fmul_rn(g0, color[p * 3 + 0]), __fmul_rn(g1, color[p * 3 + 1])),
-                __fmul_rn(g2, color[p * 3 + 2])),
-      __fmul_rn(g_trans[p], trans[p]));
-  float T = 1.0f;
+  float S, T;
+  if (carry_in) {
+    S = carry_in[(size_t)t * 2 * npix + lin];
+    T = carry_in[(size_t)t * 2 * npix + npix + lin];
+  } else {
+    S = __fadd_rn(
+        __fadd_rn(__fadd_rn(__fmul_rn(g0, color[p * 3 + 0]), __fmul_rn(g1, color[p * 3 + 1])),
+                  __fmul_rn(g2, color[p * 3 + 2])),
+        __fmul_rn(g_trans[p], trans[p]));
+    T = 1.0f;
+  }
 
   for (int b = 0; b < walk; ++b) {
     const int base = b * pair_block;
@@ -166,21 +179,27 @@ __global__ void raster_bwd_kernel(
       __syncthreads();  // red is free for the next round
     }
   }
+  if (carry_out) {
+    carry_out[(size_t)t * 2 * npix + lin] = S;
+    carry_out[(size_t)t * 2 * npix + npix + lin] = T;
+  }
 }
 
 }  // namespace
 
 // Launches one block of tile_size^2 threads (a multiple of 32) per tile on
 // `stream`; allocates nothing and does not synchronise. `pair_grads` must
-// be zero-filled. Returns cudaGetLastError() after the launch (a refused
-// launch never runs, and a later synchronise would not report it).
+// be zero-filled. With carry_in set, color and trans are not read (they may
+// be null); carry_out may be null. Returns cudaGetLastError() after the
+// launch (a refused launch never runs, and a later synchronise would not
+// report it).
 extern "C" int gsplat_raster_bwd(
     const void* feat, const void* pair_gaussian, const void* tile_start,
     const void* tile_count, const void* tile_ids, const void* blocks_done,
     const void* color, const void* trans, const void* g_color,
-    const void* g_trans, int num_tiles, int n_tiles_x, int tile_size,
-    int pair_block, float min_alpha, float max_alpha, void* pair_grads,
-    void* stream) {
+    const void* g_trans, const void* carry_in, int num_tiles, int n_tiles_x,
+    int tile_size, int pair_block, float min_alpha, float max_alpha,
+    void* pair_grads, void* carry_out, void* stream) {
   if (num_tiles == 0) return 0;
   const int threads = tile_size * tile_size;
   const size_t smem = ((size_t)gsplat::kLive * pair_block +
@@ -196,7 +215,8 @@ extern "C" int gsplat_raster_bwd(
       static_cast<const int*>(tile_ids), static_cast<const int*>(blocks_done),
       static_cast<const float*>(color), static_cast<const float*>(trans),
       static_cast<const float*>(g_color), static_cast<const float*>(g_trans),
-      n_tiles_x, tile_size, pair_block, min_alpha, max_alpha,
-      static_cast<float*>(pair_grads));
+      static_cast<const float*>(carry_in), n_tiles_x, tile_size, pair_block,
+      min_alpha, max_alpha, static_cast<float*>(pair_grads),
+      static_cast<float*>(carry_out));
   return (int)cudaGetLastError();
 }

@@ -1,10 +1,16 @@
 // Forward tile compositor for Hopper (sm_90a), bound to Python through a
 // plain C entry point (ctypes; see gsplat_tpu_torch/kernels/build.py).
 //
-// Replaces the TPU kernel gsplat_tpu/kernels/raster_fwd.py::_fwd_kernel as
-// entered through forward_tiles_pallas: per tile, front-to-back alpha
-// compositing of the tile's depth-ordered (tile, gaussian) pairs, producing
-// colour, final transmittance and the number of pair blocks composited.
+// Replaces the TPU kernel gsplat_tpu/kernels/raster_fwd.py::_fwd_kernel,
+// both as entered through forward_tiles_pallas and in its carry form
+// (forward_tiles_carry): per tile, front-to-back alpha compositing of the
+// tile's depth-ordered (tile, gaussian) pairs, producing colour, final
+// transmittance and the number of pair blocks composited. The carry form is
+// the same body with a non-null carry-in: colour and T start from a previous
+// depth slice's (render/sliced.py) instead of (0, 1), and blocks_done counts
+// this call's blocks only. A tile with no pairs writes its carry back
+// unchanged. Resuming from the stored f32 state is exact, so a frame
+// composited slice by slice equals the single call bitwise.
 //
 // What bounds it on this card: operations. Every pair of a tile is
 // evaluated at all tile_size^2 pixels: its gate, about 19 FP32 operations
@@ -47,6 +53,8 @@ __global__ void raster_fwd_kernel(
     const int* __restrict__ tile_start,      // [T]
     const int* __restrict__ tile_count,      // [T]
     const int* __restrict__ tile_ids,        // [T] global tile index
+    const float* __restrict__ carry_color,   // [T, npix, 3], or null: 0
+    const float* __restrict__ carry_trans,   // [T, npix], or null: 1
     int n_tiles_x, int tile_size, int pair_block, float early_stop,
     int width, int height, float min_alpha, float max_alpha,
     float* __restrict__ color,               // [T, npix, 3]
@@ -69,7 +77,14 @@ __global__ void raster_fwd_kernel(
       ? (px < (float)(width - 1) && py < (float)(height - 1)) : true;
 
   const int nblocks = (count + pair_block - 1) / pair_block;
+  const size_t p = (size_t)t * npix + lin;
   float T = 1.0f, c0 = 0.0f, c1 = 0.0f, c2 = 0.0f;
+  if (carry_color) {
+    c0 = carry_color[p * 3 + 0];
+    c1 = carry_color[p * 3 + 1];
+    c2 = carry_color[p * 3 + 2];
+    T = carry_trans[p];
+  }
   int done = 0;
   for (int b = 0; b < nblocks; ++b) {
     const int base = b * pair_block;
@@ -91,7 +106,6 @@ __global__ void raster_fwd_kernel(
     if (early_stop > 0.0f && !__syncthreads_or(coverable && T >= early_stop)) break;
   }
 
-  const size_t p = (size_t)t * npix + lin;
   color[p * 3 + 0] = c0;
   color[p * 3 + 1] = c1;
   color[p * 3 + 2] = c2;
@@ -102,12 +116,14 @@ __global__ void raster_fwd_kernel(
 }  // namespace
 
 // Launches one block of tile_size^2 threads per tile on `stream`; allocates
-// nothing and does not synchronise. Returns cudaGetLastError() after the
-// launch (a refused launch never runs, and a later synchronise would not
-// report it).
+// nothing and does not synchronise. carry_color and carry_trans are both
+// null (start from colour 0 and T 1) or both set. Returns cudaGetLastError()
+// after the launch (a refused launch never runs, and a later synchronise
+// would not report it).
 extern "C" int gsplat_raster_fwd(
     const void* feat, const void* pair_gaussian, const void* tile_start,
-    const void* tile_count, const void* tile_ids, int num_tiles, int n_tiles_x,
+    const void* tile_count, const void* tile_ids, const void* carry_color,
+    const void* carry_trans, int num_tiles, int n_tiles_x,
     int tile_size, int pair_block, float early_stop, int width, int height,
     float min_alpha, float max_alpha, void* color, void* trans,
     void* blocks_done, void* stream) {
@@ -116,7 +132,8 @@ extern "C" int gsplat_raster_fwd(
   raster_fwd_kernel<<<num_tiles, tile_size * tile_size, smem, (cudaStream_t)stream>>>(
       static_cast<const float*>(feat), static_cast<const int*>(pair_gaussian),
       static_cast<const int*>(tile_start), static_cast<const int*>(tile_count),
-      static_cast<const int*>(tile_ids), n_tiles_x, tile_size, pair_block,
+      static_cast<const int*>(tile_ids), static_cast<const float*>(carry_color),
+      static_cast<const float*>(carry_trans), n_tiles_x, tile_size, pair_block,
       early_stop, width, height, min_alpha, max_alpha,
       static_cast<float*>(color), static_cast<float*>(trans),
       static_cast<int*>(blocks_done));

@@ -15,6 +15,19 @@ the forward's alphas, and leave every other row (an early-stopped tail, an
 alignment pad, a slot past the last tile) exactly zero.
 ``reduce_pair_grads`` then sums the rows of each gaussian into the
 ``[N+1, 16]`` gradient of ``feat``.
+
+``backward_tiles_carry`` is the kernel's carry form (the TPU's
+``backward_tiles_carry``), one depth slice of ``render/sliced.py``'s
+backward: the walk starts from a per-pixel state ``[T, 2, npix]`` (row 0 the
+cotangent-contracted suffix signal S, row 1 the running T) and returns the
+state after the slice, so slices walked front to back take the steps of one
+walk. :func:`walk_state` builds the first state exactly as the kernel
+starts its walk. It keeps its own launch count.
+
+Without ``gaussian_counts`` (a depth slice's pairs, or a compacted subset of
+a frame's) the rows reduce by :func:`reduce_sorted`, which finds each
+gaussian's segment in the id-sorted rows itself; :func:`reduce_compacted`
+is the unsliced backward's compacted reduction (``RasterConfig.reduce_pairs``).
 """
 
 from __future__ import annotations
@@ -36,10 +49,10 @@ NUM_GRAD = 9  # gradient columns per pair row: FEAT_MEAN_X .. FEAT_B
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = (
     _P, _P, _P, _P, _P, _P,  # feat, pair_gaussian, tile_start, tile_count, tile_ids, blocks_done
-    _P, _P, _P, _P,  # color, trans, g_color, g_trans
+    _P, _P, _P, _P, _P,  # color, trans, g_color, g_trans, carry_in
     _I, _I, _I, _I,  # num_tiles, n_tiles_x, tile_size, pair_block
     _F, _F,  # min_alpha, max_alpha
-    _P, _P,  # pair_grads, stream
+    _P, _P, _P,  # pair_grads, carry_out, stream
 )
 _MAX_THREADS = 1024
 _MAX_SMEM = 232448  # shared memory a block may opt in to on Hopper
@@ -51,20 +64,31 @@ def _smem_bytes(npix: int, pair_block: int) -> int:
     return (B.NUM_LIVE_FEATURES * pair_block + (npix // 32) * _CHUNK * NUM_GRAD) * 4
 
 
+def walk_state(color: torch.Tensor, trans: torch.Tensor, g_color: torch.Tensor, g_trans: torch.Tensor) -> torch.Tensor:
+    """The backward walk's first state ``[T, 2, npix]`` from the forward's
+    final ``color``/``trans`` and their cotangents: row 0
+    ``S = ((g0*c0 + g1*c1) + g2*c2) + gT*T``, row 1 ``T = 1``, added in the
+    order and rounding the kernel starts its walk with (csrc/raster_bwd.cu)."""
+    g0, g1, g2 = (g_color[..., i] for i in range(3))
+    s_sig = g0 * color[..., 0] + g1 * color[..., 1] + g2 * color[..., 2] + g_trans * trans
+    return torch.stack([s_sig, torch.ones_like(s_sig)], dim=1)
+
+
 def backward_tiles_plain(
     feat: torch.Tensor,
     pair_gaussian: torch.Tensor,
     tile_start: torch.Tensor,
     tile_count: torch.Tensor,
     tile_ids: torch.Tensor,
-    color: torch.Tensor,
-    trans: torch.Tensor,
+    color: Optional[torch.Tensor],
+    trans: Optional[torch.Tensor],
     g_color: torch.Tensor,
-    g_trans: torch.Tensor,
+    g_trans: Optional[torch.Tensor],
     n_tiles_x: int,
     cfg: RasterConfig,
     blocks_done: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
+    carry_in: Optional[torch.Tensor] = None,
+):
     """The kernel's function in plain PyTorch, vectorized over tiles.
 
     Walks pair blocks up to the longest tile's walk (one host sync for it).
@@ -72,6 +96,10 @@ def backward_tiles_plain(
     through ``gaussian_alpha`` and the walk runs pair by pair in the
     kernel's order and rounding; the per-pixel terms are then summed over
     each tile's pixels. Returns the per-pair rows ``[P, 9]``.
+
+    With ``carry_in`` (``[T, 2, npix]``, see :func:`walk_state`) the walk
+    starts from that state, ``color``/``trans``/``g_trans`` are not read,
+    and it returns ``(rows, carry_out)``, the state after the walk.
     """
     dev, dtype = feat.device, feat.dtype
     ts, cs, blk = cfg.tile_size, cfg.chunk_size, cfg.pair_block
@@ -85,8 +113,8 @@ def backward_tiles_plain(
     if blocks_done is not None:
         walk = torch.minimum(walk, blocks_done.long())
     g0, g1, g2 = (g_color[..., i] for i in range(3))  # [T, npix]
-    s_sig = g0 * color[..., 0] + g1 * color[..., 1] + g2 * color[..., 2] + g_trans * trans
-    t_run = torch.ones_like(trans)
+    state = walk_state(color, trans, g_color, g_trans) if carry_in is None else carry_in
+    s_sig, t_run = state[:, 0], state[:, 1]
     rows = torch.zeros((num_p + 1, NUM_GRAD), dtype=dtype, device=dev)  # row P: unwalked slots
     pairs = pair_gaussian.long()
     sentinel = feat.shape[0] - 1
@@ -140,7 +168,9 @@ def backward_tiles_plain(
                 w * g2[:, None],
             )
             rows[torch.where(in_tile, slot, num_p)] = torch.stack([x.sum(-1) for x in terms], -1)
-    return rows[:num_p]
+    if carry_in is None:
+        return rows[:num_p]
+    return rows[:num_p], torch.stack([s_sig, t_run], dim=1)
 
 
 def backward_tiles(
@@ -162,57 +192,97 @@ def backward_tiles(
     ``color [T, npix, 3]`` / ``trans [T, npix]`` outputs and their
     cotangents (contiguous f32), and ``blocks_done [T]`` int32 from the
     forward (None walks every block)."""
-    args = (feat, pair_gaussian, tile_start, tile_count, tile_ids, color, trans, g_color, g_trans)
+    args = (feat, pair_gaussian, tile_start, tile_count, tile_ids)
     if feat.device.type == "cpu":
-        return backward_tiles_plain(*args, n_tiles_x, cfg, blocks_done)
+        return backward_tiles_plain(*args, color, trans, g_color, g_trans, n_tiles_x, cfg, blocks_done)
+    rows, _ = _launch("backward_tiles", args, blocks_done, (color, trans, g_color, g_trans), None, n_tiles_x, cfg)
+    backward_tiles.launches += 1
+    return rows
+
+
+def backward_tiles_carry(
+    feat: torch.Tensor,
+    pair_gaussian: torch.Tensor,
+    tile_start: torch.Tensor,
+    tile_count: torch.Tensor,
+    tile_ids: torch.Tensor,
+    carry_in: torch.Tensor,
+    g_color: torch.Tensor,
+    n_tiles_x: int,
+    cfg: RasterConfig,
+    blocks_done: Optional[torch.Tensor] = None,
+):
+    """One depth slice of the backward walk: per-pair rows ``[P, 9]`` of
+    this slice's binned pairs and the walk state after it, starting from
+    ``carry_in [T, 2, npix]`` (:func:`walk_state` for the first slice).
+    ``g_color`` is the colour cotangent ``[T, npix, 3]``; ``blocks_done`` the
+    forward's count for this slice. The CUDA kernel's carry form for CUDA
+    tensors, the plain version for CPU tensors. Returns (rows, carry_out)."""
+    args = (feat, pair_gaussian, tile_start, tile_count, tile_ids)
+    if feat.device.type == "cpu":
+        return backward_tiles_plain(*args, None, None, g_color, None, n_tiles_x, cfg, blocks_done, carry_in)
+    out = _launch("backward_tiles_carry", args, blocks_done, (None, None, g_color, None), carry_in, n_tiles_x, cfg)
+    backward_tiles_carry.launches += 1
+    return out
+
+
+def _launch(who, args, blocks_done, outs, carry_in, n_tiles_x, cfg):
+    """Check the inputs and launch the kernel on the current stream.
+    ``outs`` is (color, trans, g_color, g_trans); with ``carry_in`` only
+    ``g_color`` is read. Returns (rows, carry_out or None)."""
+    feat, pair_gaussian, tile_start, tile_count, tile_ids = args
     if feat.device.type != "cuda":
-        raise ValueError(f"backward_tiles: unsupported device {feat.device}")
+        raise ValueError(f"{who}: unsupported device {feat.device}")
     num_t = tile_ids.shape[0]
     npix = cfg.tile_size * cfg.tile_size
     if npix > _MAX_THREADS or npix % 32 or _smem_bytes(npix, cfg.pair_block) > _MAX_SMEM:
         raise ValueError(
-            f"backward_tiles: tile_size {cfg.tile_size} / pair_block {cfg.pair_block} not supported "
+            f"{who}: tile_size {cfg.tile_size} / pair_block {cfg.pair_block} not supported "
             "(tile_size**2 must be a multiple of 32 and at most 1024)"
         )
     f32, i32 = torch.float32, torch.int32
+    shapes = {"color": (num_t, npix, 3), "trans": (num_t, npix), "g_color": (num_t, npix, 3),
+              "g_trans": (num_t, npix), "carry_in": (num_t, 2, npix)}
     checked = [
         ("feat", feat, f32), ("pair_gaussian", pair_gaussian, i32), ("tile_start", tile_start, i32),
-        ("tile_count", tile_count, i32), ("tile_ids", tile_ids, i32), ("color", color, f32),
-        ("trans", trans, f32), ("g_color", g_color, f32), ("g_trans", g_trans, f32),
+        ("tile_count", tile_count, i32), ("tile_ids", tile_ids, i32), ("blocks_done", blocks_done, i32),
+        *zip(("color", "trans", "g_color", "g_trans"), outs, (f32,) * 4), ("carry_in", carry_in, f32),
     ]
-    if blocks_done is not None:
-        checked.append(("blocks_done", blocks_done, i32))
+    checked = [c for c in checked if c[1] is not None]
     for name, t, dtype in checked:
         if t.device != feat.device or t.dtype != dtype or not t.is_contiguous():
             raise ValueError(
-                f"backward_tiles: {name} must be a contiguous {dtype} tensor on "
+                f"{who}: {name} must be a contiguous {dtype} tensor on "
                 f"{feat.device}, got {t.dtype} on {t.device}"
             )
+        if name in shapes and tuple(t.shape) != shapes[name]:
+            raise ValueError(f"{who}: {name} must be {shapes[name]}, got {tuple(t.shape)}")
     if feat.dim() != 2 or feat.shape[1] != B.NUM_FEATURES or feat.data_ptr() % 16:
-        raise ValueError(f"backward_tiles: feat must be a 16-byte aligned [N+1, 16], got {tuple(feat.shape)}")
+        raise ValueError(f"{who}: feat must be a 16-byte aligned [N+1, 16], got {tuple(feat.shape)}")
     if pair_gaussian.dim() != 1 or any(
         t.shape != (num_t,) for t in (tile_start, tile_count) + ((blocks_done,) if blocks_done is not None else ())
     ):
-        raise ValueError("backward_tiles: pair_gaussian must be 1-D and tile_start/tile_count/blocks_done [T]")
-    for name, t, shape in (("color", color, (num_t, npix, 3)), ("g_color", g_color, (num_t, npix, 3)),
-                           ("trans", trans, (num_t, npix)), ("g_trans", g_trans, (num_t, npix))):
-        if tuple(t.shape) != shape:
-            raise ValueError(f"backward_tiles: {name} must be {shape}, got {tuple(t.shape)}")
+        raise ValueError(f"{who}: pair_gaussian must be 1-D and tile_start/tile_count/blocks_done [T]")
     fn = build.load_function("raster_bwd", "gsplat_raster_bwd", _ARGTYPES)
     pair_grads = torch.zeros((pair_gaussian.shape[0], NUM_GRAD), dtype=f32, device=feat.device)
+    carry_out = None if carry_in is None else torch.empty_like(carry_in)
     stream = torch.cuda.current_stream(feat.device).cuda_stream
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     err = fn(
-        *(t.data_ptr() for t in args[:5]), blocks_done.data_ptr() if blocks_done is not None else None,
-        *(t.data_ptr() for t in args[5:]), num_t, n_tiles_x, cfg.tile_size, cfg.pair_block,
-        MIN_ALPHA_F32, MAX_GAUSSIAN_DENSITY_F32, pair_grads.data_ptr(), stream,
+        *(t.data_ptr() for t in args), ptr(blocks_done), *(ptr(t) for t in outs), ptr(carry_in),
+        num_t, n_tiles_x, cfg.tile_size, cfg.pair_block, MIN_ALPHA_F32, MAX_GAUSSIAN_DENSITY_F32,
+        pair_grads.data_ptr(), ptr(carry_out), stream,
     )
     if err != 0:
         raise RuntimeError(f"raster_bwd kernel launch failed with cudaError_t {err}")
-    backward_tiles.launches += 1
-    return pair_grads
+    return pair_grads, carry_out
 
 
 backward_tiles.launches = 0  # kernel launches since the count was last reset
+backward_tiles_carry.launches = 0
 
 
 def blocked_cumsum(x: torch.Tensor) -> torch.Tensor:
@@ -266,3 +336,54 @@ def reduce_pair_grads(
     at_end = torch.where(ends > 0, cum[:, (ends - 1).clamp(min=0)], 0.0)  # [9, N]
     d_feat[:n, :NUM_GRAD] = (at_end - F.pad(at_end[:, :-1], (1, 0))).t()
     return d_feat
+
+
+def reduce_sorted(pair_grads: torch.Tensor, pair_gaussian: torch.Tensor, num_rows: int) -> torch.Tensor:
+    """Sum per-pair rows ``[P, 9]`` into per-gaussian rows ``[num_rows, 16]``
+    where no ``gaussian_counts`` describes the pairs (one depth slice's
+    pairs, or a compacted subset of a frame's), as the JAX package's sliced
+    backward does (``gsplat_tpu/render/sliced.py`` ``reduce_sorted``).
+
+    Each gaussian's segment in id order is found from the ids themselves:
+    its pair count is an integer ``index_add_`` over the ids, and
+    :func:`reduce_pair_grads` differences the sorted cumsum at the counts'
+    running ends. (The JAX package finds the ends with a scatter-max of
+    positions and a cummax over ids; PyTorch's cummax of one long row runs
+    nearly serially on the card.) No float atomics and no host sync: bitwise
+    repeatable on the card. Sentinel pairs (id ``N``) and ids without pairs
+    get zero rows.
+    """
+    counts = torch.zeros(num_rows, dtype=torch.int64, device=pair_grads.device)
+    counts.index_add_(0, pair_gaussian.long(), torch.ones_like(pair_gaussian, dtype=torch.int64))
+    return reduce_pair_grads(pair_grads, pair_gaussian, counts[:-1], num_rows)
+
+
+def written_slots(tile_start: torch.Tensor, blocks_done: torch.Tensor, total_blocks: int, pair_block: int) -> torch.Tensor:
+    """Pair slots of the blocks a backward walk wrote: each tile's first
+    ``blocks_done`` blocks from ``tile_start``, tile after tile;
+    ``total_blocks`` is ``blocks_done.sum()`` (a host int: it sizes the
+    result without a sync). Returns ``[total_blocks * pair_block]`` int64."""
+    dev = tile_start.device
+    done = blocks_done.long()
+    first = torch.cumsum(done, 0) - done  # each tile's first compact block
+    tile = torch.repeat_interleave(torch.arange(done.shape[0], device=dev), done, output_size=total_blocks)
+    blk = tile_start.long()[tile] // pair_block + torch.arange(total_blocks, device=dev) - first[tile]
+    return (blk[:, None] * pair_block + torch.arange(pair_block, device=dev)).reshape(-1)
+
+
+def reduce_compacted(
+    pair_grads: torch.Tensor,
+    pair_gaussian: torch.Tensor,
+    tile_start: torch.Tensor,
+    blocks_done: torch.Tensor,
+    total_blocks: int,
+    pair_block: int,
+    num_rows: int,
+) -> torch.Tensor:
+    """The compacted reduction (``gsplat_tpu/kernels/raster_bwd.py:576-620``):
+    gather only the blocks the walk wrote (``written_slots``) and reduce
+    those with :func:`reduce_sorted`. Every other row is zero, so the sum is
+    the full reduction's, over far fewer rows when early stop ended most
+    tiles early."""
+    slots = written_slots(tile_start, blocks_done, total_blocks, pair_block)
+    return reduce_sorted(pair_grads[slots], pair_gaussian[slots], num_rows)

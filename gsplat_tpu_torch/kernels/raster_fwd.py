@@ -11,12 +11,18 @@ Both produce per tile: color ``[T, npix, 3]``, final transmittance
 ``[T, npix]`` and ``blocks_done [T]`` int32 (pair blocks composited before
 the early stop; ``ceil(count / pair_block)`` when early stop is off), with
 the TPU kernel's block-granular early stop on coverable pixels.
+
+``forward_tiles_carry`` is the same kernel in its carry form (the TPU's
+``forward_tiles_carry``), one depth slice of ``render/sliced.py``: each tile
+resumes from a carried colour and T instead of (0, 1), ``blocks_done``
+counts this call's blocks, and a tile with no pairs passes its carry
+through. It keeps its own launch count.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -29,6 +35,7 @@ from gsplat_tpu_torch.render.tile_torch import tile_pixel_coords
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = (
     _P, _P, _P, _P, _P,  # feat, pair_gaussian, tile_start, tile_count, tile_ids
+    _P, _P,  # carry_color, carry_trans (null: start from 0 and 1)
     _I, _I, _I, _I,  # num_tiles, n_tiles_x, tile_size, pair_block
     _F, _I, _I, _F, _F,  # early_stop, width, height, min_alpha, max_alpha
     _P, _P, _P, _P,  # color, trans, blocks_done, stream
@@ -47,6 +54,7 @@ def forward_tiles_plain(
     cfg: RasterConfig,
     width: int = 0,
     height: int = 0,
+    carry: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The kernel's function in plain PyTorch, vectorized over tiles.
 
@@ -55,14 +63,18 @@ def forward_tiles_plain(
     time and composited pair by pair in the kernel's order
     (``C += rgb * (alpha * T)``, then ``T *= 1 - alpha``). A tile that is
     done, or a pair slot past its tile's count, composites alpha 0, which
-    leaves color and T bitwise unchanged.
+    leaves color and T bitwise unchanged. ``carry`` (colour ``[T, npix, 3]``,
+    T ``[T, npix]``) is the state to resume from, (0, 1) when None.
     """
     dev, dtype = feat.device, feat.dtype
     ts, cs, blk = cfg.tile_size, cfg.chunk_size, cfg.pair_block
     num_t = tile_ids.shape[0]
     px, py = tile_pixel_coords(tile_ids, n_tiles_x, ts, dtype)  # [T, npix]
-    color = torch.zeros((num_t, ts * ts, 3), dtype=dtype, device=dev)
-    trans = torch.ones((num_t, ts * ts), dtype=dtype, device=dev)
+    if carry is None:
+        color = torch.zeros((num_t, ts * ts, 3), dtype=dtype, device=dev)
+        trans = torch.ones((num_t, ts * ts), dtype=dtype, device=dev)
+    else:
+        color, trans = carry
     start = tile_start.long()
     count = tile_count.long()
     nblocks = -(-count // blk)
@@ -128,40 +140,83 @@ def forward_tiles(
     args = (feat, pair_gaussian, tile_start, tile_count, tile_ids)
     if feat.device.type == "cpu":
         return forward_tiles_plain(*args, n_tiles_x, cfg, width, height)
+    out = _launch("forward_tiles", args, None, n_tiles_x, cfg, width, height)
+    forward_tiles.launches += 1
+    return out
+
+
+def forward_tiles_carry(
+    feat: torch.Tensor,
+    pair_gaussian: torch.Tensor,
+    tile_start: torch.Tensor,
+    tile_count: torch.Tensor,
+    tile_ids: torch.Tensor,
+    carry_color: torch.Tensor,
+    carry_trans: torch.Tensor,
+    n_tiles_x: int,
+    cfg: RasterConfig,
+    width: int = 0,
+    height: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One depth slice: resume every tile from ``carry_color [T, npix, 3]``
+    and ``carry_trans [T, npix]`` over this slice's binned pairs. The CUDA
+    kernel's carry form for CUDA tensors, the plain version for CPU tensors.
+    Returns the new (color, trans) and ``blocks_done [T]``, this call's
+    blocks; a tile with ``tile_count == 0`` passes its carry through."""
+    args = (feat, pair_gaussian, tile_start, tile_count, tile_ids)
+    if feat.device.type == "cpu":
+        return forward_tiles_plain(*args, n_tiles_x, cfg, width, height, carry=(carry_color, carry_trans))
+    out = _launch("forward_tiles_carry", args, (carry_color, carry_trans), n_tiles_x, cfg, width, height)
+    forward_tiles_carry.launches += 1
+    return out
+
+
+def _launch(who, args, carry, n_tiles_x, cfg, width, height):
+    """Check the inputs and launch the kernel on the current stream."""
+    feat, pair_gaussian, tile_start, tile_count, tile_ids = args
     if feat.device.type != "cuda":
-        raise ValueError(f"forward_tiles: unsupported device {feat.device}")
+        raise ValueError(f"{who}: unsupported device {feat.device}")
     num_t = tile_ids.shape[0]
     npix = cfg.tile_size * cfg.tile_size
-    for name, t, dtype in (
+    checked = [
         ("feat", feat, torch.float32), ("pair_gaussian", pair_gaussian, torch.int32),
         ("tile_start", tile_start, torch.int32), ("tile_count", tile_count, torch.int32),
         ("tile_ids", tile_ids, torch.int32),
-    ):
+    ]
+    if carry is not None:
+        checked += [("carry_color", carry[0], torch.float32), ("carry_trans", carry[1], torch.float32)]
+    for name, t, dtype in checked:
         if t.device != feat.device or t.dtype != dtype or not t.is_contiguous():
             raise ValueError(
-                f"forward_tiles: {name} must be a contiguous {dtype} tensor on "
+                f"{who}: {name} must be a contiguous {dtype} tensor on "
                 f"{feat.device}, got {t.dtype} on {t.device}"
             )
     if feat.dim() != 2 or feat.shape[1] != B.NUM_FEATURES or feat.data_ptr() % 16:
-        raise ValueError(f"forward_tiles: feat must be a 16-byte aligned [N+1, 16], got {tuple(feat.shape)}")
+        raise ValueError(f"{who}: feat must be a 16-byte aligned [N+1, 16], got {tuple(feat.shape)}")
     if pair_gaussian.dim() != 1 or any(t.shape != (num_t,) for t in (tile_start, tile_count)):
-        raise ValueError("forward_tiles: pair_gaussian must be 1-D and tile_start/tile_count [T]")
+        raise ValueError(f"{who}: pair_gaussian must be 1-D and tile_start/tile_count [T]")
+    if carry is not None and (tuple(carry[0].shape) != (num_t, npix, 3) or tuple(carry[1].shape) != (num_t, npix)):
+        raise ValueError(
+            f"{who}: carry_color must be {(num_t, npix, 3)} and carry_trans {(num_t, npix)}, "
+            f"got {tuple(carry[0].shape)} and {tuple(carry[1].shape)}"
+        )
     if npix > _MAX_THREADS or B.NUM_LIVE_FEATURES * cfg.pair_block * 4 > _MAX_SMEM:
-        raise ValueError(f"forward_tiles: tile_size {cfg.tile_size} / pair_block {cfg.pair_block} too large")
+        raise ValueError(f"{who}: tile_size {cfg.tile_size} / pair_block {cfg.pair_block} too large")
     fn = build.load_function("raster_fwd", "gsplat_raster_fwd", _ARGTYPES)
     color = torch.empty((num_t, npix, 3), dtype=torch.float32, device=feat.device)
     trans = torch.empty((num_t, npix), dtype=torch.float32, device=feat.device)
     blocks_done = torch.empty((num_t,), dtype=torch.int32, device=feat.device)
     stream = torch.cuda.current_stream(feat.device).cuda_stream
+    carry_ptrs = (None, None) if carry is None else (carry[0].data_ptr(), carry[1].data_ptr())
     err = fn(
-        *(t.data_ptr() for t in args), num_t, n_tiles_x, cfg.tile_size, cfg.pair_block,
+        *(t.data_ptr() for t in args), *carry_ptrs, num_t, n_tiles_x, cfg.tile_size, cfg.pair_block,
         cfg.early_stop_transmittance, width, height, MIN_ALPHA_F32, MAX_GAUSSIAN_DENSITY_F32,
         color.data_ptr(), trans.data_ptr(), blocks_done.data_ptr(), stream,
     )
     if err != 0:
         raise RuntimeError(f"raster_fwd kernel launch failed with cudaError_t {err}")
-    forward_tiles.launches += 1
     return color, trans, blocks_done
 
 
 forward_tiles.launches = 0  # kernel launches since the count was last reset
+forward_tiles_carry.launches = 0

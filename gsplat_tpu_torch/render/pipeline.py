@@ -8,6 +8,9 @@ Everything runs on the device of the model's tensors. Two camera forms:
   * :func:`render` takes a :class:`CameraParams` (plain Python data);
   * :func:`render_traced` takes :class:`CameraArrays` already on the
     device; :func:`render_batch` renders a stacked batch of them.
+
+With ``cfg.slice_pairs > 0`` binning and rasterization take the
+depth-sliced path (``render/sliced.py``) instead, on any device.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from gsplat_tpu_torch.ops.camera import CameraArrays, CameraParams
 from gsplat_tpu_torch.ops.compositing import render_oracle
 from gsplat_tpu_torch.ops.projection import Preprocessed, preprocess_gaussians_from_params
 from gsplat_tpu_torch.ops.sh import sh_to_rgb
+from gsplat_tpu_torch.render.sliced import render_sliced_tiles
 from gsplat_tpu_torch.render.tile_torch import tiles_to_image
 from gsplat_tpu_torch.utils.stages import stage
 
@@ -80,17 +84,20 @@ def render_traced(
         prep = preprocess_traced(model, cam, width, height, cfg, screen_offset)
     with stage("pack_features"):
         feat = binning.pack_features(prep)
-    with stage("binning"):
-        bins = binning.bin_gaussians(
-            prep, width, height, cfg.tile_size, cfg.max_pairs, align=cfg.pair_block
+    if cfg.slice_pairs > 0:
+        color, trans = render_sliced_tiles(prep, feat, width, height, cfg)
+    else:
+        with stage("binning"):
+            bins = binning.bin_gaussians(
+                prep, width, height, cfg.tile_size, cfg.max_pairs, align=cfg.pair_block
+            )
+        n_tiles_x = -(-width // cfg.tile_size)
+        n_tiles_y = -(-height // cfg.tile_size)
+        tile_ids = torch.arange(n_tiles_x * n_tiles_y, dtype=torch.int32, device=feat.device)
+        color, trans = rasterize_tiles(
+            feat, bins.pair_gaussian, bins.tile_start, bins.tile_count, tile_ids,
+            bins.gaussian_counts, n_tiles_x, cfg, width=width, height=height,
         )
-    n_tiles_x = -(-width // cfg.tile_size)
-    n_tiles_y = -(-height // cfg.tile_size)
-    tile_ids = torch.arange(n_tiles_x * n_tiles_y, dtype=torch.int32, device=feat.device)
-    color, trans = rasterize_tiles(
-        feat, bins.pair_gaussian, bins.tile_start, bins.tile_count, tile_ids,
-        bins.gaussian_counts, n_tiles_x, cfg, width=width, height=height,
-    )
     with stage("tiles_to_image"):
         return (
             tiles_to_image(color, width, height, cfg.tile_size),

@@ -16,6 +16,10 @@ which exceeds the result where terms cancel (d conic at a pixel grows with
 dx^2), so per-pair rows and reduced gradients are compared at rtol=1e-4 /
 atol=1e-5 of the gradient's largest magnitude, and two runs of the kernel
 must be bitwise equal.
+
+The carry forms (``forward_tiles_carry``, ``backward_tiles_carry``) are held
+to the same tolerances, on a frame split in two slices: the first two pair
+blocks of every tile, then the rest, resumed from the carried state.
 """
 
 import dataclasses
@@ -26,8 +30,9 @@ import pytest
 import torch
 
 import gsplat_tpu_torch as tgs
-from gsplat_tpu_torch.kernels.raster_bwd import backward_tiles, backward_tiles_plain, reduce_pair_grads
-from gsplat_tpu_torch.kernels.raster_fwd import forward_tiles, forward_tiles_plain
+from gsplat_tpu_torch.kernels.raster_bwd import backward_tiles, backward_tiles_carry, backward_tiles_plain, reduce_pair_grads
+from gsplat_tpu_torch.kernels.raster_bwd import walk_state
+from gsplat_tpu_torch.kernels.raster_fwd import forward_tiles, forward_tiles_carry, forward_tiles_plain
 from gsplat_tpu_torch.ops import binning
 from gsplat_tpu_torch.render.pipeline import preprocess
 
@@ -161,3 +166,94 @@ def test_backward_kernel_rejects_bad_inputs(binned):
         backward_tiles(*args, color, trans, color, trans, ntx, CFG, done.long())
     with pytest.raises(ValueError, match="not supported"):
         backward_tiles(*args, color, trans, color, trans, ntx, dataclasses.replace(CFG, tile_size=4), done)
+
+
+def _two_slices(args):
+    """The binned frame as two slices of every tile's pairs: the first two
+    pair blocks, then the rest (start and count of each)."""
+    _, _, tile_start, tile_count, _ = args
+    first = torch.minimum(tile_count, torch.full_like(tile_count, 2 * CFG.pair_block))
+    return ((tile_start, first), (tile_start + first, tile_count - first))
+
+
+@pytest.mark.parametrize("threshold", [0.0, 1e-4])
+def test_carry_kernels_match_plain(binned, threshold):
+    """Both carry kernels, slice after slice, against their plain versions
+    on the same inputs; the slices chained give the single pass's frame."""
+    args, ntx, _ = binned
+    feat, pair_gaussian, _, _, tile_ids = args
+    cfg = dataclasses.replace(CFG, early_stop_transmittance=threshold)
+    num_t, npix = tile_ids.shape[0], CFG.tile_size ** 2
+    carry = (torch.zeros(num_t, npix, 3, device=feat.device), torch.ones(num_t, npix, device=feat.device))
+    before = forward_tiles_carry.launches, backward_tiles_carry.launches
+    slices = []
+    for start, count in _two_slices(args):
+        got = forward_tiles_carry(feat, pair_gaussian, start, count, tile_ids, *carry, ntx, cfg, WIDTH, HEIGHT)
+        torch.cuda.synchronize()
+        want = forward_tiles_plain(feat, pair_gaussian, start, count, tile_ids, ntx, cfg, WIDTH, HEIGHT, carry=carry)
+        torch.testing.assert_close(got[0], want[0], rtol=RTOL, atol=ATOL)
+        torch.testing.assert_close(got[1], want[1], rtol=RTOL, atol=ATOL)
+        torch.testing.assert_close(got[2], want[2], rtol=0, atol=0)
+        slices.append((start, count, got[2]))
+        carry = got[:2]
+    if threshold == 0.0:
+        single = forward_tiles(*args, ntx, cfg, WIDTH, HEIGHT)
+        assert torch.equal(carry[0], single[0]) and torch.equal(carry[1], single[1])
+    gen = torch.Generator(device=feat.device).manual_seed(1)
+    g_color = torch.randn(carry[0].shape, generator=gen, device=feat.device)
+    g_trans = torch.randn(carry[1].shape, generator=gen, device=feat.device)
+    state = walk_state(*carry, g_color, g_trans)
+    for start, count, done in slices:
+        rows, out = backward_tiles_carry(feat, pair_gaussian, start, count, tile_ids, state, g_color, ntx, cfg, done)
+        again, _ = backward_tiles_carry(feat, pair_gaussian, start, count, tile_ids, state, g_color, ntx, cfg, done)
+        torch.cuda.synchronize()
+        p_rows, p_out = backward_tiles_plain(feat, pair_gaussian, start, count, tile_ids, None, None, g_color, None,
+                                             ntx, cfg, done, state)
+        _close_to_max(rows, p_rows)
+        torch.testing.assert_close(out[:, 1], p_out[:, 1], rtol=RTOL, atol=ATOL)
+        _close_to_max(out[:, 0], p_out[:, 0])
+        assert torch.equal(rows, again)
+        state = out
+    assert (forward_tiles_carry.launches, backward_tiles_carry.launches) == (before[0] + 2, before[1] + 4)
+
+
+def test_carry_kernels_reject_bad_inputs(binned):
+    args, ntx, _ = binned
+    num_t, npix = args[4].shape[0], CFG.tile_size ** 2
+    color = torch.zeros(num_t, npix, 3, device=args[0].device)
+    trans = torch.ones(num_t, npix, device=args[0].device)
+    with pytest.raises(ValueError, match="carry_trans"):
+        forward_tiles_carry(*args, color, trans.double(), ntx, CFG)
+    with pytest.raises(ValueError, match="carry_color"):
+        forward_tiles_carry(*args, color[:, :, :2].contiguous(), trans, ntx, CFG)
+    state = torch.zeros(num_t, 2, npix, device=args[0].device)
+    with pytest.raises(ValueError, match="carry_in"):
+        backward_tiles_carry(*args, state[:, :1].contiguous(), color, ntx, CFG)
+    with pytest.raises(ValueError, match="carry_in"):
+        backward_tiles_carry(*args, state.transpose(1, 2), color, ntx, CFG)
+    with pytest.raises(ValueError, match="g_color"):
+        backward_tiles_carry(*args, state, trans, ntx, CFG)
+
+
+def test_sliced_render_on_card_matches_cpu(device):
+    """The depth-sliced path on the card (both carry kernels) against the
+    same model on the CPU (both plain versions): image, T and gradients;
+    with early stop off the image equals the single-sort render bitwise."""
+    model, camera = scene(device, n=300, grow=0.0, seed=7)
+    cpu_model = tgs.GaussianModel.from_arrays(model.to_arrays(), device="cpu")
+    cfg = dataclasses.replace(CFG, slice_pairs=64, reduce_pairs=1024)
+    before = forward_tiles.launches, forward_tiles_carry.launches
+    outs = []
+    for m in (model, cpu_model):
+        img, trans = tgs.render(m, camera, cfg)
+        grads = torch.autograd.grad((img * img).sum() + trans.sum(), list(m.parameters()))
+        outs.append((img, trans, grads))
+    assert forward_tiles.launches == before[0] and forward_tiles_carry.launches > before[1] + 1
+    (img, trans, grads), (c_img, c_trans, c_grads) = outs
+    torch.testing.assert_close(img.cpu(), c_img, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(trans.cpu(), c_trans, rtol=RTOL, atol=ATOL)
+    for got, want in zip(grads, c_grads):
+        torch.testing.assert_close(got.cpu(), want, rtol=2e-3, atol=5e-5 * float(want.abs().max()))
+    with torch.inference_mode():
+        single = tgs.render(model, camera, CFG)
+    assert torch.equal(img.detach(), single[0]) and torch.equal(trans.detach(), single[1])

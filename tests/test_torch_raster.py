@@ -106,7 +106,7 @@ def test_dispatch_on_cpu_is_the_plain_version(binned):
     assert forward_tiles.launches == before  # the CPU path launches no kernel
 
 
-def test_rasterize_tiles_is_forward_only(binned):
+def test_rasterize_tiles_grad_and_no_grad(binned):
     """Under grad, ``rasterize_tiles``' gradient to ``feat`` is the plain
     backward + the sort-based reduction (the backward kernel's plain path on
     the CPU); without grad it is the forward alone, with nothing saved."""

@@ -153,16 +153,16 @@ def test_quickstart_flow_matches_jax(tmp_path):
     close(trans, j_trans)
 
 
-def test_render_under_grad_is_not_implemented_yet():
-    """Rendering under grad now gives finite gradients to every parameter;
-    what is still not implemented is the compacted gradient reduction."""
+def test_render_under_grad_gives_finite_grads():
+    """Rendering under grad gives finite gradients to every parameter, on
+    the single-sort and the depth-sliced path, with and without the
+    compacted reduction."""
     model = tgs.GaussianModel.from_arrays(random_splat_arrays(np.random.default_rng(1), 50), device="cpu")
-    img, trans = tgs.render(model, port_camera(make_camera()), port_cfg())
-    grads = torch.autograd.grad(img.sum() + trans.sum(), list(model.parameters()))
-    assert all(bool(torch.isfinite(g).all()) for g in grads)
-    assert any(float(g.abs().max()) > 0 for g in grads)
-    with pytest.raises(NotImplementedError, match="reduce_pairs"):
-        port_cfg(reduce_pairs=1024)
+    for kw in ({}, {"reduce_pairs": 1024}, {"slice_pairs": 1024, "reduce_pairs": 1024}):
+        img, trans = tgs.render(model, port_camera(make_camera()), port_cfg(early_stop_transmittance=1e-4, **kw))
+        grads = torch.autograd.grad(img.sum() + trans.sum(), list(model.parameters()))
+        assert all(bool(torch.isfinite(g).all()) for g in grads), kw
+        assert any(float(g.abs().max()) > 0 for g in grads), kw
 
 
 def test_default_device_without_card_raises():
@@ -177,9 +177,15 @@ def test_default_device_without_card_raises():
         tgs.random_model(torch.Generator(), 10)
 
 
-def test_slice_pairs_is_refused():
-    with pytest.raises(NotImplementedError, match="slice_pairs"):
-        tgs.RasterConfig(slice_pairs=1024)
+def test_slice_pairs_validation():
+    """``slice_pairs`` must be a ``pair_block`` multiple (checked by the
+    config) and at least the frame's tile count (checked at render time,
+    where the frame size is known)."""
+    with pytest.raises(ValueError, match="multiple of pair_block"):
+        tgs.RasterConfig(pair_block=128, slice_pairs=1000)
+    model = tgs.GaussianModel.from_arrays(random_splat_arrays(np.random.default_rng(1), 20), device="cpu")
+    with torch.no_grad(), pytest.raises(ValueError, match="tile count"):
+        tgs.render(model, port_camera(make_camera()), port_cfg(tile_size=8, slice_pairs=40))  # 48 tiles
 
 
 _NO_JAX_SCRIPT = """
@@ -200,7 +206,11 @@ model = tgs.GaussianModel.from_arrays(arrays, device="cpu")
 cam = tgs.CameraParams(32, 24, 1.0, 0.8, 25.6, 25.6, (1.0, 0.0, 0.0, 0.0), (0.0, 0.0, 4.0))
 with torch.no_grad():
     img, trans = tgs.render(model, cam, tgs.RasterConfig(tile_size=16, chunk_size=8, pair_block=8, max_pairs=4096))
+    s_img, s_trans = tgs.render(model, cam, tgs.RasterConfig(tile_size=16, chunk_size=8, pair_block=8, max_pairs=4096,
+                                                             slice_pairs=64))
 assert img.shape == (24, 32, 3) and bool(torch.isfinite(img).all())
+assert torch.equal(s_img, img) and torch.equal(s_trans, trans)
+assert "gsplat_tpu_torch.render.sliced" in sys.modules
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "gsplat_tpu.")) or m == "gsplat_tpu")
 assert not bad, bad
 print("ok")
@@ -208,7 +218,8 @@ print("ok")
 
 
 def test_port_imports_no_jax():
-    """The port and chip_smoke.py render without importing JAX or gsplat_tpu."""
+    """The port and chip_smoke.py render, single-sort and depth-sliced,
+    without importing JAX or gsplat_tpu."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run(
         [sys.executable, "-c", _NO_JAX_SCRIPT], cwd=REPO, env=env,
