@@ -4,10 +4,11 @@
 Usage: ``python3 chip_smoke.py`` from the repository root, on a machine with
 one NVIDIA H100 (or another sm_90a card) and the CUDA toolkit. It builds the
 port's CUDA kernels from ``gsplat_tpu_torch/csrc`` (into ``build/kernels``),
-then runs six phases, each printing one JSON line:
+then runs eight phases, each printing one JSON line:
 
   1. device: the card's name and power limit, torch/CUDA versions, kernel
-     build time and the compiler's register report;
+     build time, the compiler's register report and each kernel's
+     registers and spill bytes;
   2. small: the forward kernel against its plain PyTorch version on a
      256x192 frame of 20K gaussians (early stop off and 1e-4, where most
      tiles stop early), and a 64x48 render against the sequential oracle;
@@ -18,7 +19,7 @@ then runs six phases, each printing one JSON line:
      3 and the backward kernel's 0, and one full frame is held against the
      plain version;
   4. timing: the forward kernel alone and the plain version at the phase-3
-     shapes, with the kernel's bound on this card, and one request taken
+     shapes, with the kernel's bounds on this card, and one request taken
      apart by the stages ``render`` marks, with its device-busy time and
      host synchronisations;
   5. grad_small: the backward kernel and the gradient reduction against
@@ -32,12 +33,28 @@ then runs six phases, each printing one JSON line:
      steps over the three phase-3 poses (finite losses, one forward and one
      backward launch per step, every parameter changed), the step's median
      time, device-busy time and the stages ``train_step`` marks, the
-     backward kernel's time against its bound and the plain version's, the
-     peak device memory, and the seconds the script has run so far.
+     backward kernel's time against its bounds and the plain version's, the
+     peak device memory, and the seconds the script has run so far;
+  7. sliced_small: both carry kernels against their plain versions on every
+     depth slice of the phase-2 frame (early stop off and 1e-4), two sliced
+     runs under grad bitwise equal, and the sliced frame bitwise equal to
+     the single-sort frame with early stop off;
+  8. real_density: 5M gaussians at scale shift 1.9 (1080p, early stop 1e-4,
+     capacity 1.1x the demand), depth-sliced and single-sort: three requests
+     with their carry launches, the first slice's carry kernels against
+     their plain versions, timed and bounded, and 3 ``fit`` steps and the
+     step time of both paths.
 
-A kernel's bound counts the work its inputs need: the gate (and its expf)
-at every pair-pixel the kernel walks, and the compositing or gradient work
-only at the pair-pixels that pass the gate, which the script counts.
+A kernel's bound counts the work its inputs need. ``bound_ms`` charges the
+gate (and its expf) only at the walked pair-pixels inside each pair's
+alpha-bound rect (``kernels/cull.py``): outside it the gate cannot pass, so
+that work is not needed, and the kernels skip it in each warp whose pixels
+the rect misses. ``bound_unculled_ms``, kept for comparison with the first
+ports' rows, charges the gate at every pair-pixel walked. Both charge the
+compositing or gradient work only at the pair-pixels that pass the gate, and
+the bytes read and written once. The script counts the pair-pixels of each
+kind and the (warp, pair) evaluations the culled kernels make
+(``warp_pairs``).
 
 It then prints ``nvidia-smi``'s name/power-limit line, the ``kernels`` JSON
 line and, last, ``{"ok": true, "device": {...}}``. Any failed check raises,
@@ -104,6 +121,21 @@ def nvidia_smi_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_resources(lines) -> dict:
+    """Registers and spill bytes of a kernel's ``-Xptxas -v`` report (one
+    kernel per source; None where the report does not say)."""
+    import re
+
+    text = " ".join(lines)
+
+    def first(pattern):
+        m = re.search(pattern, text)
+        return int(m.group(1)) if m else None
+
+    return {"registers": first(r"Used (\d+) registers"), "spill_stores": first(r"(\d+) bytes spill stores"),
+            "spill_loads": first(r"(\d+) bytes spill loads")}
 
 
 def build_scene(n: int, scale_shift: float, device):
@@ -240,51 +272,81 @@ def rows_error(got, want, what: str) -> dict:
     return out
 
 
-def pair_pixels(args, n_tiles_x: int, cfg, blocks_done=None, chunk: int = 1 << 13) -> tuple:
-    """(walked, passed): the pair-pixels a compositor pass over these inputs
-    evaluates (each pair slot a tile walks, up to ``blocks_done`` blocks,
-    at each of the tile's pixels; alignment pads are not walked), and those
-    among them at which the pair passes its gates (alpha, density, bbox)."""
+def pair_pixels(args, n_tiles_x: int, cfg, blocks_done=None, chunk: int = 1 << 13) -> dict:
+    """The pair-pixels a compositor pass over these inputs evaluates without
+    culling (each pair slot a tile walks, up to ``blocks_done`` blocks, at
+    each of the tile's pixels; alignment pads are not walked: ``walked``),
+    those among them inside the pair's alpha-bound rect (``rect``), those
+    at which the pair passes its gates (alpha, density, bbox: ``passed``),
+    and the (warp, pair) evaluations of the culled kernels (``warp_pairs``,
+    each 32 pair-pixels)."""
     import torch
 
+    from gsplat_tpu_torch.kernels import cull
     from gsplat_tpu_torch.ops import binning as B
     from gsplat_tpu_torch.ops.compositing import gaussian_alpha
     from gsplat_tpu_torch.render.tile_torch import tile_pixel_coords
 
     feat, pair_gaussian, tile_start, tile_count, tile_ids = args
     dev = feat.device
+    ts = cfg.tile_size
     walked = tile_count.long()
     if blocks_done is not None:
         walked = torch.minimum(walked, blocks_done.long() * cfg.pair_block)
     tiles = torch.repeat_interleave(torch.arange(len(tile_ids), device=dev), walked)
     first = torch.cumsum(walked, 0) - walked
     slots = tile_start.long()[tiles] + torch.arange(len(tiles), device=dev) - first[tiles]
-    px, py = tile_pixel_coords(tile_ids, n_tiles_x, cfg.tile_size, feat.dtype)
+    px, py = tile_pixel_coords(tile_ids, n_tiles_x, ts, feat.dtype)
     passed = torch.zeros((), dtype=torch.int64, device=dev)
+    rect_pixels = torch.zeros((), dtype=torch.int64, device=dev)
+    warp_pairs = torch.zeros((), dtype=torch.int64, device=dev)
     for i in range(0, len(slots), chunk):
-        f = feat[pair_gaussian[slots[i:i + chunk]].long()][:, :, None]  # [c, 16, 1]
+        rows = feat[pair_gaussian[slots[i:i + chunk]].long()]
+        f = rows[:, :, None]  # [c, 16, 1]
+        t = tile_ids[tiles[i:i + chunk]].long()
         x, y = px[tiles[i:i + chunk]], py[tiles[i:i + chunk]]  # [c, npix]
         at = gaussian_alpha(x, y, *(f[:, k] for k in (B.FEAT_MEAN_X, B.FEAT_MEAN_Y, B.FEAT_CONIC_X,
                                                       B.FEAT_CONIC_Y, B.FEAT_CONIC_XY, B.FEAT_OPACITY)))
         inside = ((x >= f[:, B.FEAT_X_MIN]) & (x < f[:, B.FEAT_X_MAX])
                   & (y >= f[:, B.FEAT_Y_MIN]) & (y < f[:, B.FEAT_Y_MAX]))
         passed += (at.valid & inside).sum()
-    return len(slots) * cfg.tile_size ** 2, int(passed)
+        pixels, warps = cull.cull_counts(cull.pair_alpha_rect(rows), (t % n_tiles_x) * ts, (t // n_tiles_x) * ts, ts)
+        rect_pixels += pixels.sum()
+        warp_pairs += warps.sum()
+    return {"walked": len(slots) * ts ** 2, "rect": int(rect_pixels), "passed": int(passed),
+            "warp_pairs": int(warp_pairs)}
 
 
-def compositor_bound(walked: int, passed: int, nbytes: int, backward: bool) -> dict:
+def compositor_bound(counts: dict, nbytes: int, backward: bool) -> dict:
     """A compositor's least time on this card for the work these inputs
-    need: every walked pair-pixel's gate and expf, the rest only where the
-    gate passes, against the bytes read and written once."""
-    fp32 = walked * GATE_FP32_OPS + passed * (BWD_PASSED_FP32_OPS if backward else FWD_PASSED_FP32_OPS)
-    sfu = walked + (passed if backward else 0)  # expf; the backward's division
-    out = {"pair_pixels": walked, "passed_pair_pixels": passed, "passed_share": passed / max(walked, 1),
-           "bytes": nbytes, "bytes_ms": nbytes / PEAK_HBM_BYTES * 1e3,
-           "fp32_ms": fp32 / PEAK_FP32_OPS * 1e3, "sfu_ms": sfu / PEAK_SFU_EXP * 1e3}
-    out["ops_ms"] = max(out["fp32_ms"], out["sfu_ms"])
-    out["bound_ms"] = max(out["bytes_ms"], out["ops_ms"])
-    out["bound_by"] = "operations" if out["ops_ms"] >= out["bytes_ms"] else "bytes"
+    need (``counts`` from :func:`pair_pixels`): the gate and its expf at the
+    walked pair-pixels inside each pair's alpha-bound rect (``bound_ms``;
+    ``bound_unculled_ms`` at every walked pair-pixel), the rest only where
+    the gate passes, against the bytes read and written once."""
+    walked, rect, passed = counts["walked"], counts["rect"], counts["passed"]
+    per_pass = BWD_PASSED_FP32_OPS if backward else FWD_PASSED_FP32_OPS
+    out = {"pair_pixels": walked, "rect_pair_pixels": rect, "passed_pair_pixels": passed,
+           "warp_pairs": counts["warp_pairs"], "passed_share": passed / max(walked, 1),
+           "rect_share": rect / max(walked, 1), "warp_share": counts["warp_pairs"] * 32 / max(walked, 1),
+           "bytes": nbytes, "bytes_ms": nbytes / PEAK_HBM_BYTES * 1e3}
+    for suffix, gated in (("", rect), ("_unculled", walked)):
+        fp32_ms = (gated * GATE_FP32_OPS + passed * per_pass) / PEAK_FP32_OPS * 1e3
+        sfu_ms = (gated + (passed if backward else 0)) / PEAK_SFU_EXP * 1e3  # expf; the backward's division
+        ops_ms = max(fp32_ms, sfu_ms)
+        out.update({f"fp32{suffix}_ms": fp32_ms, f"sfu{suffix}_ms": sfu_ms, f"ops{suffix}_ms": ops_ms,
+                    f"bound{suffix}_ms": max(out["bytes_ms"], ops_ms),
+                    f"bound{suffix}_by": "operations" if ops_ms >= out["bytes_ms"] else "bytes"})
     return out
+
+
+def bound_fields(bound: dict, ms: float) -> dict:
+    """A kernel's bound, the unculled bound, their shares of the kernel's
+    time and the culling counts, for the ``kernels`` line."""
+    return {"bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"], "share_of_bound": bound["bound_ms"] / ms,
+            "bound_unculled_ms": bound["bound_unculled_ms"],
+            "share_of_bound_unculled": bound["bound_unculled_ms"] / ms, "pair_pixels": bound["pair_pixels"],
+            "rect_pair_pixels": bound["rect_pair_pixels"], "passed_pair_pixels": bound["passed_pair_pixels"],
+            "warp_pairs": bound["warp_pairs"]}
 
 
 def stage_breakdown(fn, runs: int = 5) -> dict:
@@ -436,7 +498,7 @@ def main() -> int:
     emit({
         "phase": "device", "nvidia_smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
         "device": torch.cuda.get_device_name(0), "build_s": build_s, "compiled": sorted(built),
-        "ptxas": ptxas,
+        "ptxas": ptxas, "resources": {name: ptxas_resources(lines) for name, lines in ptxas.items()},
     })
 
     # -- phase 2: kernel vs plain, small; render vs oracle, tiny --
@@ -543,7 +605,7 @@ def main() -> int:
         # Exact mode: every tile walks all its pairs (blocks_done = all).
         fwd_bytes = (sum(t.numel() * t.element_size() for t in args)
                      + len(args[4]) * (cfg.tile_size ** 2 * 4 * 4 + 4))  # colour, T, blocks_done
-        fwd_bound = compositor_bound(*pair_pixels(args, ntx, cfg), fwd_bytes, backward=False)
+        fwd_bound = compositor_bound(pair_pixels(args, ntx, cfg), fwd_bytes, backward=False)
     emit({
         "phase": "timing", "kernel_ms": kernel_ms, "plain_ms": plain_ms, **fwd_bound,
         "pair_slots": args[1].numel(), "tiles": len(args[4]), **breakdown,
@@ -613,7 +675,7 @@ def main() -> int:
         reduction_ms = cuda_ms(lambda: reduce_pair_grads(rows, args[1], bins.gaussian_counts, args[0].shape[0]), 20)
         bwd_bytes = (sum(t.numel() * t.element_size() for t in (*args, *outs, done))
                      + args[1].numel() * 9 * 4)  # the [P, 9] rows
-        bwd_bound = compositor_bound(*pair_pixels(args, ntx, cfg, done), bwd_bytes, backward=True)
+        bwd_bound = compositor_bound(pair_pixels(args, ntx, cfg, done), bwd_bytes, backward=True)
         del color, trans, outs, rows, p_rows, d_feat, p_feat
 
     trainer = gs.Trainer(raster=cfg, train=gs.TrainConfig(ssim_weight=0.2, steps=3, log_every=1),
@@ -774,8 +836,8 @@ def main() -> int:
         common = (int(torch.unique(rec.ids[0][walked]).numel()) * 64 + rec.ids[0].numel() * 4
                   + len(tile_ids) * 16)
         counts0 = pair_pixels(args0, ntx, rcfg, rec.bdone[0])
-        fwd_carry_bound = compositor_bound(*counts0, common + color.numel() // 3 * 32, backward=False)
-        bwd_carry_bound = compositor_bound(*counts0, common + color.numel() // 3 * 28 + rec.ids[0].numel() * 36,
+        fwd_carry_bound = compositor_bound(counts0, common + color.numel() // 3 * 32, backward=False)
+        bwd_carry_bound = compositor_bound(counts0, common + color.numel() // 3 * 28 + rec.ids[0].numel() * 36,
                                            backward=True)
         real["sliced_request"] = {
             "stage_ms": stage_breakdown(lambda: gs.render(model, cam0, rcfg)),
@@ -841,27 +903,26 @@ def main() -> int:
         {
             "name": "raster_fwd", "route": "cuda", "source": "gsplat_tpu_torch/csrc/raster_fwd.cu",
             "replaces": "gsplat_tpu/kernels/raster_fwd.py:68", "launches": launches,
-            "max_abs_err": frame_err, "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": fwd_bound["bound_ms"],
-            "bound_by": fwd_bound["bound_by"], "library_ms": None,
+            "max_abs_err": frame_err, "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None,
+            **bound_fields(fwd_bound, kernel_ms),
         },
         {
             "name": "raster_bwd", "route": "cuda", "source": "gsplat_tpu_torch/csrc/raster_bwd.cu",
             "replaces": "gsplat_tpu/kernels/raster_bwd.py:45", "launches": train_launches["raster_bwd"],
-            "max_abs_err": frame["rows"]["max_abs_err"], "ms": bwd_ms, "plain_ms": bwd_plain_ms,
-            "bound_ms": bwd_bound["bound_ms"], "bound_by": bwd_bound["bound_by"], "library_ms": None,
+            "max_abs_err": frame["rows"]["max_abs_err"], "ms": bwd_ms, "plain_ms": bwd_plain_ms, "library_ms": None,
+            **bound_fields(bwd_bound, bwd_ms),
         },
         {
             "name": "raster_fwd_carry", "route": "cuda", "source": "gsplat_tpu_torch/csrc/raster_fwd.cu",
             "replaces": "gsplat_tpu/kernels/raster_fwd.py:266", "launches": fwd_carry_launches,
-            "max_abs_err": fwd_carry_err, "ms": fwd_carry_ms, "plain_ms": fwd_carry_plain_ms,
-            "bound_ms": fwd_carry_bound["bound_ms"], "bound_by": fwd_carry_bound["bound_by"], "library_ms": None,
+            "max_abs_err": fwd_carry_err, "ms": fwd_carry_ms, "plain_ms": fwd_carry_plain_ms, "library_ms": None,
+            **bound_fields(fwd_carry_bound, fwd_carry_ms),
         },
         {
             "name": "raster_bwd_carry", "route": "cuda", "source": "gsplat_tpu_torch/csrc/raster_bwd.cu",
             "replaces": "gsplat_tpu/kernels/raster_bwd.py:339", "launches": real_launches["raster_bwd_carry"],
             "max_abs_err": real["first_slice_bwd"]["rows"]["max_abs_err"], "ms": bwd_carry_ms,
-            "plain_ms": bwd_carry_plain_ms, "bound_ms": bwd_carry_bound["bound_ms"],
-            "bound_by": bwd_carry_bound["bound_by"], "library_ms": None,
+            "plain_ms": bwd_carry_plain_ms, "library_ms": None, **bound_fields(bwd_carry_bound, bwd_carry_ms),
         },
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

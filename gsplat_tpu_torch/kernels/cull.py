@@ -1,0 +1,110 @@
+"""The compositors' culling, in plain PyTorch: each pair's alpha-bound rect,
+the warp rect, the tilings the kernels take, and the counts of the work the
+culled kernels do.
+
+Both CUDA compositors (``csrc/raster_fwd.cu``, ``csrc/raster_bwd.cu``) give
+each warp a compact ``WARP_RECT`` of a tile's pixels and walk, in each warp,
+only the pairs whose alpha-bound rect meets it (``csrc/raster_common.cuh``
+``alpha_rect`` and ``warp_span``). :func:`pair_alpha_rect` is the plain twin
+of ``alpha_rect``. Nothing on the render or training path calls this
+module's culling functions: the kernels take their rects themselves (the
+wrappers call only :func:`check_tiling`). The CPU tests
+check with them that the rect is conservative and the culling exact, and
+``chip_smoke.py`` counts with them the pair-pixels and warp evaluations a
+culled walk makes (:func:`cull_counts`).
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from gsplat_tpu_torch.ops import binning as B
+from gsplat_tpu_torch.ops.compositing import MIN_ALPHA_F32
+
+WARP_RECT = (8, 4)  # pixels a warp owns, x by y (csrc/raster_common.cuh kWarpW, kWarpH)
+MAX_THREADS = 1024
+MAX_SMEM = 232448  # shared memory a block may opt in to on Hopper
+
+
+def staging_bytes(pair_block: int) -> int:
+    """Shared memory of the kernels' staging pipeline (``staging_bytes`` in
+    ``csrc/raster_common.cuh``): three row buffers ``[pair_block, 16]`` and
+    two warp-span buffers ``[pair_block]``."""
+    return pair_block * (3 * B.NUM_FEATURES + 2) * 4
+
+
+def check_tiling(who: str, tile_size: int, pair_block: int, smem_bytes: int) -> None:
+    """Raise ValueError unless the kernels can take this tiling: the tile a
+    whole number of warp rects with at most ``MAX_THREADS`` pixels, and the
+    launch's shared memory at most ``MAX_SMEM``."""
+    ww, wh = WARP_RECT
+    if (tile_size <= 0 or tile_size % ww or tile_size % wh or tile_size ** 2 > MAX_THREADS
+            or pair_block <= 0 or smem_bytes > MAX_SMEM):
+        raise ValueError(
+            f"{who}: tile_size {tile_size} / pair_block {pair_block} not supported (the tile must be "
+            f"a multiple of the {ww}x{wh} warp rect with at most {MAX_THREADS} pixels, and shared "
+            f"memory at most {MAX_SMEM} bytes; needs {smem_bytes})"
+        )
+
+
+def pair_alpha_rect(feat_rows: torch.Tensor) -> torch.Tensor:
+    """The half-open pixel rect ``[P, 4]`` (x0, y0, x1, y1; f32 whole
+    pixels) outside which each packed feature row's gate cannot pass: the
+    twin of ``alpha_rect`` in ``csrc/raster_common.cuh``, in float64 as
+    there.
+
+    Where ``opacity * exp(density) > 1/255`` the quadratic form ``q = -2 *
+    density`` stays below ``2 ln(opacity / MIN_ALPHA_F32)``, so ``|dx| <=
+    sqrt(q * Sxx)`` with ``Sxx = cy / (cx*cy - cxy^2)`` (and likewise for
+    y). ``q`` is widened for the f32 rounding of the gate (the density's
+    terms, whose magnitudes are at most ``q / (1 - rho)``, and the expf and
+    product), a pixel of guard is added on each side, and the rect is cut to
+    the row's reference bbox. Opacity at or below ``MIN_ALPHA_F32`` gives
+    the empty rect (0, 0, 0, 0), as does an empty cut; a conic that is not
+    clearly positive definite (``det <= 1e-4 cx cy``), or a non-finite
+    term, gives the whole bbox.
+    """
+    f = feat_rows.to(torch.float32)
+    mx, my, cx, cy, cxy, op = (f[:, i] for i in (B.FEAT_MEAN_X, B.FEAT_MEAN_Y, B.FEAT_CONIC_X,
+                                                 B.FEAT_CONIC_Y, B.FEAT_CONIC_XY, B.FEAT_OPACITY))
+    bbox = f[:, B.FEAT_X_MIN:B.FEAT_Y_MAX + 1]
+    finite = torch.isfinite(f[:, B.FEAT_MEAN_X:B.FEAT_OPACITY + 1]).all(dim=1)
+    live = op > MIN_ALPHA_F32
+    dcx, dcy, dcxy, dop = cx.double(), cy.double(), cxy.double(), op.double()
+    det = dcx * dcy - dcxy * dcxy
+    pd = (dcx > 0.0) & (dcy > 0.0) & (det > 1e-4 * dcx * dcy)
+    s = det / (dcx * dcy)
+    q = (2.0 * torch.log(dop / MIN_ALPHA_F32) + 1e-5) * (1.0 + 1e-4 / s)
+    rx = torch.sqrt(q * dcy / det) + 1.0
+    ry = torch.sqrt(q * dcx / det) + 1.0
+    box = bbox.double()
+    x0 = torch.maximum(box[:, 0], torch.ceil(mx.double() - rx))
+    y0 = torch.maximum(box[:, 1], torch.ceil(my.double() - ry))
+    x1 = torch.minimum(box[:, 2], torch.floor(mx.double() + rx) + 1.0)
+    y1 = torch.minimum(box[:, 3], torch.floor(my.double() + ry) + 1.0)
+    fits = (x1 > x0) & (y1 > y0)
+    rect = torch.where(fits[:, None], torch.stack([x0, y0, x1, y1], dim=1), 0.0).to(torch.float32)
+    rect = torch.where(pd[:, None], rect, bbox)
+    rect = torch.where(live[:, None], rect, 0.0)
+    return torch.where(finite[:, None], rect, bbox)
+
+
+def cull_counts(rect: torch.Tensor, ox: torch.Tensor, oy: torch.Tensor,
+                tile_size: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """For pairs with rects ``rect [P, 4]`` walked in tiles whose first
+    pixels are ``(ox, oy)`` (each ``[P]``): the tile pixels inside each rect,
+    and the warp rects of the tile that each rect meets, which are the
+    warps that walk the pair (``warp_span`` in ``csrc/raster_common.cuh``).
+    Returns two int64 ``[P]``."""
+    ww, wh = WARP_RECT
+    ox, oy = ox.to(rect.dtype), oy.to(rect.dtype)
+    x0, x1 = torch.maximum(rect[:, 0], ox), torch.minimum(rect[:, 2], ox + tile_size)
+    y0, y1 = torch.maximum(rect[:, 1], oy), torch.minimum(rect[:, 3], oy + tile_size)
+    w, h = (x1 - x0).clamp(min=0), (y1 - y0).clamp(min=0)
+    pixels = (w * h).long()
+    nwx = torch.floor((x1 - 1 - ox) / ww) - torch.floor((x0 - ox) / ww) + 1
+    nwy = torch.floor((y1 - 1 - oy) / wh) - torch.floor((y0 - oy) / wh) + 1
+    warps = torch.where(pixels > 0, nwx * nwy, 0.0).long()
+    return pixels, warps

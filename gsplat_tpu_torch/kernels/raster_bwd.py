@@ -39,7 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from gsplat_tpu_torch.config import RasterConfig
-from gsplat_tpu_torch.kernels import build
+from gsplat_tpu_torch.kernels import build, cull
 from gsplat_tpu_torch.ops import binning as B
 from gsplat_tpu_torch.ops.compositing import MAX_GAUSSIAN_DENSITY_F32, MIN_ALPHA_F32, gaussian_alpha
 from gsplat_tpu_torch.render.tile_torch import tile_pixel_coords
@@ -54,14 +54,22 @@ _ARGTYPES = (
     _F, _F,  # min_alpha, max_alpha
     _P, _P, _P,  # pair_grads, carry_out, stream
 )
-_MAX_THREADS = 1024
-_MAX_SMEM = 232448  # shared memory a block may opt in to on Hopper
-_CHUNK = 32  # pairs per round of the kernel's pixel sums (csrc/raster_bwd.cu kChunk)
 _SCAN_BLOCK = 1024  # row length of the blocked cumsum
 
 
+def _sum_round(npix: int, pair_block: int) -> int:
+    """Pairs per round of the kernel's pixel sums (csrc/raster_bwd.cu
+    ``sum_round``): the whole batch where its warp slots fit in shared
+    memory beside the staging, else 32."""
+    whole = cull.staging_bytes(pair_block) + (npix // 32) * pair_block * NUM_GRAD * 4
+    return pair_block if whole <= cull.MAX_SMEM else 32
+
+
 def _smem_bytes(npix: int, pair_block: int) -> int:
-    return (B.NUM_LIVE_FEATURES * pair_block + (npix // 32) * _CHUNK * NUM_GRAD) * 4
+    """The kernel's shared memory (csrc/raster_bwd.cu): the staging
+    pipeline's, and the warps' pixel sums of one round, [npix / 32,
+    round, 9]."""
+    return cull.staging_bytes(pair_block) + (npix // 32) * _sum_round(npix, pair_block) * NUM_GRAD * 4
 
 
 def walk_state(color: torch.Tensor, trans: torch.Tensor, g_color: torch.Tensor, g_trans: torch.Tensor) -> torch.Tensor:
@@ -235,11 +243,7 @@ def _launch(who, args, blocks_done, outs, carry_in, n_tiles_x, cfg):
         raise ValueError(f"{who}: unsupported device {feat.device}")
     num_t = tile_ids.shape[0]
     npix = cfg.tile_size * cfg.tile_size
-    if npix > _MAX_THREADS or npix % 32 or _smem_bytes(npix, cfg.pair_block) > _MAX_SMEM:
-        raise ValueError(
-            f"{who}: tile_size {cfg.tile_size} / pair_block {cfg.pair_block} not supported "
-            "(tile_size**2 must be a multiple of 32 and at most 1024)"
-        )
+    cull.check_tiling(who, cfg.tile_size, cfg.pair_block, _smem_bytes(npix, cfg.pair_block))
     f32, i32 = torch.float32, torch.int32
     shapes = {"color": (num_t, npix, 3), "trans": (num_t, npix), "g_color": (num_t, npix, 3),
               "g_trans": (num_t, npix), "carry_in": (num_t, 2, npix)}

@@ -27,7 +27,7 @@ from typing import Optional, Tuple
 import torch
 
 from gsplat_tpu_torch.config import RasterConfig
-from gsplat_tpu_torch.kernels import build
+from gsplat_tpu_torch.kernels import build, cull
 from gsplat_tpu_torch.ops import binning as B
 from gsplat_tpu_torch.ops.compositing import MAX_GAUSSIAN_DENSITY_F32, MIN_ALPHA_F32, gaussian_alpha
 from gsplat_tpu_torch.render.tile_torch import tile_pixel_coords
@@ -40,8 +40,6 @@ _ARGTYPES = (
     _F, _I, _I, _F, _F,  # early_stop, width, height, min_alpha, max_alpha
     _P, _P, _P, _P,  # color, trans, blocks_done, stream
 )
-_MAX_THREADS = 1024
-_MAX_SMEM = 48 * 1024  # dynamic shared memory a launch gets without opting in
 
 
 def forward_tiles_plain(
@@ -200,8 +198,7 @@ def _launch(who, args, carry, n_tiles_x, cfg, width, height):
             f"{who}: carry_color must be {(num_t, npix, 3)} and carry_trans {(num_t, npix)}, "
             f"got {tuple(carry[0].shape)} and {tuple(carry[1].shape)}"
         )
-    if npix > _MAX_THREADS or B.NUM_LIVE_FEATURES * cfg.pair_block * 4 > _MAX_SMEM:
-        raise ValueError(f"{who}: tile_size {cfg.tile_size} / pair_block {cfg.pair_block} too large")
+    cull.check_tiling(who, cfg.tile_size, cfg.pair_block, cull.staging_bytes(cfg.pair_block))
     fn = build.load_function("raster_fwd", "gsplat_raster_fwd", _ARGTYPES)
     color = torch.empty((num_t, npix, 3), dtype=torch.float32, device=feat.device)
     trans = torch.empty((num_t, npix), dtype=torch.float32, device=feat.device)

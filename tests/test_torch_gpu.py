@@ -20,6 +20,11 @@ must be bitwise equal.
 The carry forms (``forward_tiles_carry``, ``backward_tiles_carry``) are held
 to the same tolerances, on a frame split in two slices: the first two pair
 blocks of every tile, then the rest, resumed from the carried state.
+
+Both kernels walk, in each warp, only the pairs whose alpha-bound rect meets
+the warp's pixel rect, and stage pair rows two batches ahead; hand-built
+inputs (``_synthetic``) probe the edges of both, with the forward held
+bitwise to its plain version.
 """
 
 import dataclasses
@@ -257,3 +262,99 @@ def test_sliced_render_on_card_matches_cpu(device):
     with torch.inference_mode():
         single = tgs.render(model, camera, CFG)
     assert torch.equal(img.detach(), single[0]) and torch.equal(trans.detach(), single[1])
+
+
+def _synthetic(kind, tile_size, pair_block, seed=0):
+    """Hand-built compositor inputs on a 2x2-tile frame that probe the
+    kernels' culling (each warp walks only the pairs whose alpha-bound rect
+    meets its pixel rect) and their staging (batches of pair_block rows,
+    copied two batches ahead): rects ending on warp-rect edges, tiles whose
+    every pair misses some warps, ragged pair counts, tiles of many batches,
+    and splats that cover the whole tile."""
+    rng = np.random.default_rng(seed)
+    counts = {"warp_edges": [150, 40, 97, 5], "corner": [130, 33, 64, 1],
+              "ragged": [1, 31, 33, 129] if pair_block > 8 else [1, 7, 9, 33],
+              "many_batches": [5 * pair_block + 3, 3 * pair_block, 2 * pair_block + 1, pair_block - 1],
+              "whole_tile": [60, 17, 3 * pair_block + 5, 2]}[kind]
+    rows, ids, starts = [], [], []
+    for tile, count in enumerate(counts):
+        ox, oy = (tile % 2) * tile_size, (tile // 2) * tile_size
+        starts.append(len(ids))
+        sigma = rng.uniform(0.6, 5.0, (count, 2))
+        centre = rng.uniform(0, tile_size, (count, 2))
+        opacity = rng.uniform(0.05, 0.9, count)
+        if kind == "corner":  # small splats in the tile's first quarter only
+            sigma, centre = sigma * 0.4, centre * 0.3
+        if kind == "whole_tile":  # every pair covers every pixel
+            sigma, opacity = rng.uniform(4 * tile_size, 8 * tile_size, (count, 2)), rng.uniform(0.004, 0.02, count)
+        theta = rng.uniform(0, np.pi, count)
+        c, s = np.cos(theta), np.sin(theta)
+        a, b = sigma[:, 0] ** 2, sigma[:, 1] ** 2
+        cov = np.stack([a * c * c + b * s * s, (a - b) * c * s, a * s * s + b * c * c], 1)
+        det = cov[:, 0] * cov[:, 2] - cov[:, 1] ** 2
+        mx, my = ox + centre[:, 0], oy + centre[:, 1]
+        lo = np.floor(np.stack([mx, my], 1) - 3 * sigma.max(1, keepdims=True))
+        hi = np.ceil(np.stack([mx, my], 1) + 3 * sigma.max(1, keepdims=True)) + 1
+        if kind == "warp_edges":  # the bbox, not the alpha extent, bounds the rect: snap it to warp edges
+            cov = np.stack([np.full(count, 2500.0), np.zeros(count), np.full(count, 2500.0)], 1)
+            det = cov[:, 0] * cov[:, 2]
+            snap = np.array([8, 4])
+            lo = np.stack([ox + rng.integers(0, tile_size // 8, count) * 8,
+                           oy + rng.integers(0, tile_size // 4, count) * 4], 1) + rng.integers(-1, 2, (count, 2))
+            hi = lo + rng.integers(1, 3, (count, 2)) * snap + rng.integers(-1, 2, (count, 2))
+        lo = np.clip(lo, 0, 2 * tile_size)
+        hi = np.clip(hi, 0, 2 * tile_size)
+        row = np.zeros((count, 16), np.float32)
+        row[:, 0], row[:, 1] = mx, my
+        row[:, 2], row[:, 3], row[:, 4] = cov[:, 2] / det, cov[:, 0] / det, -cov[:, 1] / det
+        row[:, 5] = opacity
+        row[:, 6:9] = rng.uniform(0, 1, (count, 3))
+        row[:, 9:11], row[:, 11:13] = lo, hi
+        first = sum(len(r) for r in rows)
+        ids.extend(range(first, first + count))
+        rows.append(row)
+    feat = np.concatenate(rows + [np.zeros((1, 16), np.float32)])
+    ids = np.array(ids, np.int32)
+    pad = -len(ids) % pair_block
+    return (torch.from_numpy(feat), torch.from_numpy(np.concatenate([ids, np.full(pad, len(feat) - 1, np.int32)])),
+            torch.tensor(starts, dtype=torch.int32), torch.tensor(counts, dtype=torch.int32),
+            torch.arange(4, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("tiling", [(16, 8), (32, 128), (8, 128), (32, 256)])
+@pytest.mark.parametrize("kind", ["warp_edges", "corner", "ragged", "many_batches", "whole_tile"])
+def test_culled_kernels_match_plain(device, kind, tiling):
+    """Both kernels and their carry forms on the culling and staging edge
+    cases of ``_synthetic``: the forward bitwise equal to its plain version
+    (colour, T and blocks_done), the backward within its tolerance, two
+    runs of each bitwise equal. Tile 8 with pair_block 128 has each thread
+    stage two rows of a batch; at tile 32 with pair_block 256 the
+    backward's warp slots of a whole batch exceed shared memory, so it sums
+    in rounds of 32 pairs."""
+    tile_size, pair_block = tiling
+    args = tuple(t.to(device) for t in _synthetic(kind, tile_size, pair_block))
+    width = height = 2 * tile_size
+    for stop in (0.0, 1e-4):
+        cfg = tgs.RasterConfig(tile_size=tile_size, chunk_size=8, pair_block=pair_block, early_stop_transmittance=stop)
+        got = forward_tiles(*args, 2, cfg, width, height)
+        again = forward_tiles(*args, 2, cfg, width, height)
+        torch.cuda.synchronize()
+        want = forward_tiles_plain(*args, 2, cfg, width, height)
+        for g, a, w in zip(got, again, want):
+            assert torch.equal(g, w) and torch.equal(g, a)
+        gen = torch.Generator(device=device).manual_seed(2)
+        g_color = torch.randn(got[0].shape, generator=gen, device=device)
+        g_trans = torch.randn(got[1].shape, generator=gen, device=device)
+        outs = (*got[:2], g_color, g_trans)
+        rows = backward_tiles(*args, *outs, 2, cfg, got[2])
+        rows2 = backward_tiles(*args, *outs, 2, cfg, got[2])
+        state = walk_state(*got[:2], g_color, g_trans)
+        c_rows, c_out = backward_tiles_carry(*args, state, g_color, 2, cfg, got[2])
+        torch.cuda.synchronize()
+        p_rows = backward_tiles_plain(*args, *outs, 2, cfg, got[2])
+        pc_rows, pc_out = backward_tiles_plain(*args, None, None, g_color, None, 2, cfg, got[2], state)
+        _close_to_max(rows, p_rows)
+        _close_to_max(c_rows, pc_rows)
+        torch.testing.assert_close(c_out[:, 1], pc_out[:, 1], rtol=RTOL, atol=ATOL)
+        _close_to_max(c_out[:, 0], pc_out[:, 0])
+        assert torch.equal(rows, rows2) and torch.equal(rows, c_rows)
