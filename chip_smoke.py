@@ -4,7 +4,7 @@
 Usage: ``python3 chip_smoke.py`` from the repository root, on a machine with
 one NVIDIA H100 (or another sm_90a card) and the CUDA toolkit. It builds the
 port's CUDA kernels from ``gsplat_tpu_torch/csrc`` (into ``build/kernels``),
-then runs eight phases, each printing one JSON line:
+then runs nine phases, each printing one JSON line:
 
   1. device: the card's name and power limit, torch/CUDA versions, kernel
      build time, the compiler's register report and each kernel's
@@ -43,7 +43,16 @@ then runs eight phases, each printing one JSON line:
      capacity 1.1x the demand), depth-sliced and single-sort: three requests
      with their carry launches, the first slice's carry kernels against
      their plain versions, timed and bounded, and 3 ``fit`` steps and the
-     step time of both paths.
+     step time of both paths;
+  9. densify: training from SfM points (``densify_phase``): 500K points
+     drawn from the phase-3 model, ``from_points3d`` (its
+     ``knn_mean_sq_dist`` timed), 12 densifying ``fit`` steps on a pool of
+     1M rows (``DENSIFY``; clone, split and prune counts from the log, one
+     forward and one backward launch per step, the model compacted), a
+     6-step ``fit`` with a loop checkpoint resumed by a fresh trainer to
+     the same parameters bitwise, one densify pass, the densifying step
+     against the plain one, checkpoint save and restore, the PLY round
+     trip and ``render_depth`` (one forward launch, depth in range).
 
 A kernel's bound counts the work its inputs need. ``bound_ms`` charges the
 gate (and its expf) only at the walked pair-pixels inside each pair's
@@ -66,6 +75,7 @@ It imports neither JAX nor the JAX package.
 from __future__ import annotations
 
 import json
+import logging
 import math
 import os
 import statistics
@@ -104,6 +114,22 @@ REAL_N = 5_000_000
 REAL_SHIFT = 1.9
 REAL_SLICE = 1 << 19
 REAL_REDUCE = 1 << 20
+# Training from SfM points (phase 9): a cloud of MipNeRF-360 size drawn from
+# the headline model, its pool the headline's N, 12 densifying steps with
+# passes at steps 4 and 8, an opacity reset at 6 and the size prune from 4.
+# The views are the three headline poses moved sideways, so that the
+# cameras' centres spread and the scene extent is 0.55 (the headline poses
+# share one centre, which gives camera_extent its 1e-6 floor). The
+# thresholds are set from this cloud's spread (PERF.md, PR 5): the
+# viewspace gradient's 99th percentile at step 4 is about 3e-5 (the 3DGS
+# default 2e-4 makes no candidate), the initial scales are 0.05-0.26 of the
+# extent and the radii up to about 60 px, so that every pass clones, splits
+# and prunes.
+SFM_POINTS = 500_000
+DENSIFY_STEPS = 12
+DENSIFY_POSES = [("bench", 0.0, 0.0), ("left", 0.05, 0.5), ("right", -0.05, -0.5)]  # name, yaw, x shift
+DENSIFY = dict(every=4, start=4, grad_threshold=1e-5, prune_scale_extent=0.25, max_screen_size=55.0,
+               size_prune_start=4, percent_dense=0.1, opacity_reset_every=6, pool_factor=2.0)
 
 
 def emit(obj) -> None:
@@ -163,9 +189,9 @@ def build_scene(n: int, scale_shift: float, device):
     )
 
 
-def bench_camera(width: int, height: int, yaw: float = 0.0):
+def bench_camera(width: int, height: int, yaw: float = 0.0, shift: float = 0.0):
     """The bench camera (bench.py:220-231), optionally turned by ``yaw``
-    radians about +y."""
+    radians about +y and moved by ``shift`` along its x axis (tvec)."""
     from gsplat_tpu_torch import CameraParams
 
     fx = 0.8 * width
@@ -173,7 +199,7 @@ def bench_camera(width: int, height: int, yaw: float = 0.0):
         width=width, height=height,
         fov_x=2 * math.atan(width / (2 * fx)), fov_y=2 * math.atan(height / (2 * fx)),
         focal_x=fx, focal_y=fx,
-        qvec=(math.cos(yaw / 2), 0.0, math.sin(yaw / 2), 0.0), tvec=(0.0, 0.0, 0.0),
+        qvec=(math.cos(yaw / 2), 0.0, math.sin(yaw / 2), 0.0), tvec=(shift, 0.0, 0.0),
     )
 
 
@@ -461,6 +487,220 @@ def carry_chain(feat, rec, n_tiles_x, cfg, width, height, g_color, g_trans) -> d
     out["d_feat"] = rows_error(d_feat, p_feat, "sliced d_feat")
     out["color"], out["trans"] = carry
     return out
+
+
+def quantiles(x) -> list:
+    """The 1st, 10th, 50th, 90th and 99th percentiles of the values of ``x``."""
+    import torch
+
+    x = x.reshape(-1).float()
+    if x.numel() == 0:
+        return []
+    return torch.quantile(x, torch.tensor([0.01, 0.1, 0.5, 0.9, 0.99], device=x.device)).tolist()
+
+
+class LogLines(logging.Handler):
+    """A logging handler that keeps each record's message."""
+
+    def __init__(self):
+        super().__init__()
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+def densify_phase(cfg, dev, t_main: float):
+    """Phase 9: train from an SfM cloud with densification, a loop
+    checkpoint and a resume, then export and render depth, on ``dev``.
+    Returns (the phase's record, the fit's launches, render_depth's forward
+    launches)."""
+    import dataclasses
+    import re
+    import tempfile
+
+    import torch
+
+    import gsplat_tpu_torch as gs
+    from gsplat_tpu_torch.kernels.raster_bwd import backward_tiles, backward_tiles_carry
+    from gsplat_tpu_torch.kernels.raster_fwd import forward_tiles, forward_tiles_carry
+    from gsplat_tpu_torch.models.gaussians import PARAM_NAMES
+    from gsplat_tpu_torch.ops.sh import SH_C0
+    from gsplat_tpu_torch.train import checkpoint as CK
+    from gsplat_tpu_torch.train import densify as D
+    from gsplat_tpu_torch.utils.logging import get_logger
+    from gsplat_tpu_torch.utils.stages import record_stages
+
+    out = {"sfm_points": SFM_POINTS, "steps": DENSIFY_STEPS, "poses": DENSIFY_POSES, "config": DENSIFY}
+    cams = [bench_camera(WIDTH, HEIGHT, yaw, shift) for _, yaw, shift in DENSIFY_POSES]
+    # Targets: the headline model seen from the three poses. The SfM cloud:
+    # points drawn from its means, coloured by its DC band, as COLMAP's
+    # reader gives them (f64 positions, uint8 colours).
+    with torch.inference_mode():
+        bench = build_scene(NUM_GAUSSIANS, 0.0, dev)
+        frames = [gs.render(bench, cam, cfg)[0] for cam in cams]
+        pick = torch.randperm(NUM_GAUSSIANS, generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+        pick = pick[:SFM_POINTS]
+        xyzs = bench.means[pick].double().cpu().numpy()
+        rgbs = ((bench.sh[pick, 0] * SH_C0 + 0.5).clamp(0.0, 1.0) * 255.0).round().to(torch.uint8).cpu().numpy()
+        del bench, pick
+    views = [(cam, img.clone()) for cam, img in zip(cams, frames)]  # normal tensors: loss targets
+    del frames
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with record_stages() as spans:  # from_points3d marks its knn_mean_sq_dist
+        init = gs.GaussianModel.from_points3d(xyzs, rgbs, device=dev)
+    torch.cuda.synchronize()
+    out["from_points3d_s"] = time.perf_counter() - t0
+    out["knn_mean_sq_dist_s"] = sum(a.elapsed_time(b) for name, a, b in spans if name == "knn_mean_sq_dist") / 1e3
+    with torch.inference_mode():
+        probe = dataclasses.replace(cfg, max_pairs=1 << 20)
+        demand = max(int(gs.binning_stats(init, gs.CameraArrays.from_params(cam, device=dev), WIDTH, HEIGHT,
+                                          probe)["pair_demand"]) for cam in cams)
+    dcfg = dataclasses.replace(cfg, max_pairs=max(int(demand * 2) // 128 * 128, CAPACITY_FLOOR))
+    out.update({"pair_demand": demand, "capacity": dcfg.max_pairs, "scene_extent": D.camera_extent(cams),
+                "pool": D.pool_capacity(SFM_POINTS, gs.DensifyConfig(**DENSIFY))})
+
+    dc = gs.DensifyConfig(**DENSIFY)
+    tc = gs.TrainConfig(ssim_weight=0.2, steps=DENSIFY_STEPS, log_every=1, densify=dc)
+    # What each pass decides on: the accumulated state's spread.
+    pass_inputs = []
+    real_pass = D.densify_prune_step
+
+    def recording_pass(model, state, generator, extent, config, step):
+        alive = D.alive_mask(model)
+        seen = alive & (state.grad_count > 0)
+        avg_grad = state.grad_sum / state.grad_count.clamp(min=1)
+        size = torch.exp(model.log_scales.detach().amax(-1)) / extent
+        pass_inputs.append({
+            "step": step, "alive": int(alive.sum()), "seen": int(seen.sum()),
+            "avg_grad_q": quantiles(avg_grad[seen]), "max_scale_over_extent_q": quantiles(size[alive]),
+            "candidate_max_scale_over_extent_q": quantiles(size[seen & (avg_grad >= config.grad_threshold)]),
+            "max_radius_q": quantiles(state.max_radius[alive]),
+        })
+        return real_pass(model, state, generator, extent, config, step=step)
+
+    log = LogLines()
+    logger = get_logger()
+    logger.addHandler(log)
+    D.densify_prune_step = recording_pass
+    trainer = gs.Trainer(raster=dcfg, train=tc, show_progress=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    forward_tiles.launches = backward_tiles.launches = forward_tiles_carry.launches = backward_tiles_carry.launches = 0
+    fit0 = time.perf_counter()
+    ticks = [fit0]  # a history record (a host sync) closes every step
+    final, history = trainer.fit(init, views, log_fn=lambda record: ticks.append(time.perf_counter()))
+    torch.cuda.synchronize()
+    out["fit_s"] = time.perf_counter() - fit0
+    out["fit_step_s"] = [b - a for a, b in zip(ticks, ticks[1:])]
+    launches = {"raster_fwd": forward_tiles.launches, "raster_bwd": backward_tiles.launches,
+                "raster_fwd_carry": forward_tiles_carry.launches, "raster_bwd_carry": backward_tiles_carry.launches}
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    D.densify_prune_step = real_pass
+    logger.removeHandler(log)
+    passes = []
+    for line in log.lines:
+        m = re.fullmatch(r"densify @(\d+): \+(\d+) clone \+(\d+) split -(\d+) prune \((\d+) alive\)", line)
+        if m:
+            passes.append(dict(zip(("step", "cloned", "split", "pruned", "alive"), map(int, m.groups()))))
+    out.update({"losses": [h["loss"] for h in history], "psnr": [h["psnr"] for h in history], "launches": launches,
+                "passes": passes, "pass_inputs": pass_inputs, "num_gaussians": final.num_gaussians})
+    check(len(history) == DENSIFY_STEPS and all(math.isfinite(h["loss"]) for h in history), f"finite losses: {history}")
+    check(launches == {"raster_fwd": DENSIFY_STEPS, "raster_bwd": DENSIFY_STEPS, "raster_fwd_carry": 0,
+                       "raster_bwd_carry": 0}, f"one forward and one backward launch per step: {launches}")
+    check([p["step"] for p in passes] == [4, 8], f"passes at steps 4 and 8: {passes}")
+    for key in ("cloned", "split", "pruned"):
+        check(all(p[key] > 0 for p in passes), f"every pass has {key} gaussians: {passes}")
+    check(final.num_gaussians == int(D.num_alive(final)) == passes[-1]["alive"], "the returned model is compacted")
+    check(trainer.raster == dcfg, "no capacity resize at 2x the initial demand")
+
+    # Interrupted at half way, resumed by a fresh trainer: bitwise the same.
+    with tempfile.TemporaryDirectory() as tmp:
+        gs.Trainer(raster=dcfg, train=tc, show_progress=False).fit(init, views, steps=DENSIFY_STEPS // 2,
+                                                                   checkpoint_dir=tmp)
+        resumed, r_history = gs.Trainer(raster=dcfg, train=tc, show_progress=False).fit(
+            init, views, checkpoint_dir=tmp, resume=True)
+        check(r_history[0]["step"] == DENSIFY_STEPS // 2, "the second fit resumed")
+        check(all(torch.equal(getattr(resumed, k), getattr(final, k)) for k in PARAM_NAMES),
+              "the resumed run reaches the uninterrupted run's parameters bitwise")
+        check([h["loss"] for h in r_history] == out["losses"][DENSIFY_STEPS // 2:], "resumed losses bitwise")
+        del resumed
+        # Checkpoint I/O at the pool's size: the state saved at the end.
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pool, optimizer, next_step, dstate, generator = CK.restore_loop_state(tmp, trainer.init_state, device=dev)
+        torch.cuda.synchronize()
+        out["checkpoint_restore_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        CK.save_loop_state(tmp, pool, optimizer, next_step, dstate, generator)
+        out["checkpoint_save_s"] = time.perf_counter() - t0
+        out["checkpoint_bytes"] = os.path.getsize(CK.loop_state_path(tmp))
+    check(next_step == DENSIFY_STEPS and pool.num_gaussians == out["pool"], "the saved state is the final pool")
+
+    # One pass on copies of the final pool (its last window's state).
+    times, stats = [], None
+    extent = D.camera_extent(cams)
+    for _ in range(5):
+        copy = gs.GaussianModel(*(getattr(pool, k).detach().clone() for k in PARAM_NAMES))
+        gen = torch.Generator(device=dev)
+        gen.set_state(generator.get_state())
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        _, _, stats = D.densify_prune_step(copy, dstate, gen, extent, dc, step=DENSIFY_STEPS)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+        del copy
+    out["densify_prune_step"] = {"ms": statistics.median(times), "pool": pool.num_gaussians, "stats": stats}
+
+    # The densifying step (viewspace probe and radii) beside a plain step.
+    cam0 = gs.CameraArrays.from_params(cams[0], device=dev)
+    target, bg = views[0][1], torch.zeros(3, device=dev)
+
+    def densifying_step():
+        trainer._step_vs(pool, optimizer, cam0, target, bg, WIDTH, HEIGHT, dcfg)
+
+    def plain_step():
+        trainer.train_step(pool, optimizer, cams[0], target)
+
+    densifying_step()
+    plain_step()
+    times = {densifying_step: [], plain_step: []}
+    for i in range(5):  # in turns, each side first in alternate rounds
+        for fn in (densifying_step, plain_step)[:: 1 - 2 * (i % 2)]:
+            times[fn].append(cuda_ms(fn, 1))
+    out["step"] = {"densifying_ms": statistics.median(times[densifying_step]),
+                   "plain_ms": statistics.median(times[plain_step]),
+                   "densifying_device_busy_ms": device_busy_ms(densifying_step),
+                   "plain_device_busy_ms": device_busy_ms(plain_step)}
+    del pool, optimizer, dstate
+
+    # Export: the compacted model's PLY loads back bitwise.
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        CK.save_ply_checkpoint(tmp, final, DENSIFY_STEPS)
+        back = CK.load_ply_checkpoint(tmp, DENSIFY_STEPS, device=dev)
+        out["ply_roundtrip_s"] = time.perf_counter() - t0
+    check(all(torch.equal(getattr(back, k), getattr(final, k)) for k in PARAM_NAMES), "PLY round trip bitwise")
+    del back
+
+    # The depth map of the trained model: one forward launch.
+    with torch.inference_mode():
+        forward_tiles.launches = backward_tiles.launches = 0
+        depth, trans = gs.render_depth(final, cam0, WIDTH, HEIGHT, dcfg)
+        torch.cuda.synchronize()
+        depth_launches = forward_tiles.launches
+        check((depth_launches, backward_tiles.launches) == (1, 0), "render_depth: one forward launch")
+        check(bool(torch.isfinite(depth).all()), "finite depth")
+        covered = 1.0 - trans
+        check(bool((depth >= 0.2 * covered - 1e-4).all() and (depth <= 100.0 * covered + 1e-3).all()),
+              "depth within [near (1 - T), far (1 - T)]")
+        out["depth"] = {"covered_share": float((trans < 0.5).float().mean()),
+                        "median_normalised_depth": float((depth / covered.clamp(min=1e-6))[trans < 0.5].median())}
+    out["elapsed_s"] = time.perf_counter() - t_main  # since main() began, the build included
+    return out, launches, depth_launches
 
 
 def main() -> int:
@@ -897,18 +1137,26 @@ def main() -> int:
         "max_memory_allocated": torch.cuda.max_memory_allocated()}
     real["elapsed_s"] = time.perf_counter() - t_main  # since main() began, the build included
     emit({"phase": "real_density", **real})
+    del model, trainer, ss_trainer, optimizer, target
+    torch.cuda.empty_cache()
+
+    # -- phase 9: training from SfM points: densify, checkpoint, resume --
+    dense, dense_launches, depth_launches = densify_phase(cfg, dev, t_main)
+    emit({"phase": "densify", **dense})
 
     print(smi, flush=True)
     emit({"kernels": [
         {
             "name": "raster_fwd", "route": "cuda", "source": "gsplat_tpu_torch/csrc/raster_fwd.cu",
             "replaces": "gsplat_tpu/kernels/raster_fwd.py:68", "launches": launches,
+            "densify_fit_launches": dense_launches["raster_fwd"], "render_depth_launches": depth_launches,
             "max_abs_err": frame_err, "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None,
             **bound_fields(fwd_bound, kernel_ms),
         },
         {
             "name": "raster_bwd", "route": "cuda", "source": "gsplat_tpu_torch/csrc/raster_bwd.cu",
             "replaces": "gsplat_tpu/kernels/raster_bwd.py:45", "launches": train_launches["raster_bwd"],
+            "densify_fit_launches": dense_launches["raster_bwd"],
             "max_abs_err": frame["rows"]["max_abs_err"], "ms": bwd_ms, "plain_ms": bwd_plain_ms, "library_ms": None,
             **bound_fields(bwd_bound, bwd_ms),
         },

@@ -92,6 +92,51 @@ class RasterConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class DensifyConfig:
+    """Adaptive density control (the 3DGS clone/split/prune recipe) on a
+    fixed-capacity gaussian pool (``train/densify.py``): pruned slots become
+    inert (opacity collapsed, so they emit no pairs) and later clones and
+    splits reuse them.
+
+    Attributes:
+      every/start/until: run the densify+prune pass every ``every`` steps
+        within [start, until).
+      grad_threshold: mean viewspace positional-gradient norm (NDC scale, the
+        3DGS convention: the pixel-space probe is rescaled by 0.5*W/H in
+        ``densify.accumulate``) above which a gaussian is densified. The mean
+        is over the steps in which the gaussian received any gradient.
+      min_opacity: activated opacity below which a gaussian is pruned.
+      prune_scale_extent: world-space size prune: a gaussian whose largest
+        scale exceeds this fraction of the scene extent is pruned (3DGS's
+        ``big_points_ws``).
+      max_screen_size: screen-space size prune: a gaussian whose largest
+        projected radius over the accumulation window exceeds this many
+        pixels is pruned (3DGS's ``big_points_vs``). 0 disables both
+        size-prune criteria.
+      size_prune_start: step at which the two size-prune criteria engage.
+      percent_dense: scale cutoff (fraction of the camera extent) separating
+        clone (small splat) from split (large splat).
+      split_factor: scale shrink for split gaussians.
+      opacity_reset_every: clamp opacity to <= 0.01 at this cadence
+        (0 = never).
+      pool_factor: pool capacity = pool_factor * initial gaussian count.
+    """
+
+    every: int = 100
+    start: int = 100
+    until: int = 1 << 30
+    grad_threshold: float = 2e-4
+    min_opacity: float = 0.005
+    prune_scale_extent: float = 0.1
+    max_screen_size: float = 20.0
+    size_prune_start: int = 3000
+    percent_dense: float = 0.01
+    split_factor: float = 1.6
+    opacity_reset_every: int = 0
+    pool_factor: float = 2.0
+
+
+@dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Training / fine-tuning settings (the 3DGS recipe).
 
@@ -105,7 +150,7 @@ class TrainConfig:
       background: "black", "white" or "random" (a fresh colour every step);
         the render is composited onto it through its transmittance.
       steps, log_every, checkpoint_every: loop length and cadences.
-      densify: adaptive density control; not ported yet, must be None.
+      densify: adaptive density control (None = a fixed set of gaussians).
       sh_warmup_every: train with SH degree ``min(step // this, degree)``
         (0 = full degree from step 0).
     """
@@ -122,11 +167,5 @@ class TrainConfig:
     steps: int = 1000
     log_every: int = 50
     checkpoint_every: int = 500
-    densify: Optional[object] = None
+    densify: Optional[DensifyConfig] = None
     sh_warmup_every: int = 0
-
-    def __post_init__(self):
-        if self.densify is not None:
-            raise NotImplementedError(
-                "densify (adaptive density control) is not ported yet; use densify=None"
-            )

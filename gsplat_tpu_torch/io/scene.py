@@ -47,8 +47,7 @@ def checkpoint_ply_path(trained_model_path: str, iteration: int = 30000) -> str:
 def read_points3d(path_to_scene: str):
     """Load the SfM point cloud from ``<scene>/sparse/0/points3D.{bin,txt}``
     -> (xyzs [N,3], rgbs [N,3], errors [N,1]), the seed of training from
-    scratch (the JAX package's ``GaussianModel.from_points3d``; the port's
-    comes with training). The reference parses the same files
+    scratch (``GaussianModel.from_points3d``). The reference parses the same files
     (data_reader.py:48-114) but never consumes them."""
     from gsplat_tpu_torch.io.colmap import read_points3D_binary, read_points3D_text
 

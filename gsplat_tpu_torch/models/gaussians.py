@@ -12,7 +12,7 @@ parameters, in the Inria PLY checkpoint semantics the reference loads:
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -20,6 +20,7 @@ from torch import nn
 
 from gsplat_tpu_torch.ops.projection import covariance_from_scales_quats
 from gsplat_tpu_torch.utils.device import resolve_device
+from gsplat_tpu_torch.utils.stages import stage
 
 PARAM_NAMES = ("means", "log_scales", "quats", "opacity_logits", "sh")
 
@@ -63,6 +64,66 @@ class GaussianModel(nn.Module):
 
     def extra_repr(self) -> str:
         return f"num_gaussians={self.num_gaussians}"
+
+    @classmethod
+    def from_points3d(
+        cls, xyzs, rgbs, initial_opacity: float = 0.1, dtype=torch.float32, device="cuda"
+    ) -> "GaussianModel":
+        """A trainable model from SfM points (``[N, 3]`` positions and
+        ``[N, 3]`` 0-255 colours, as ``io.scene.read_points3d`` returns
+        them), the 3DGS initialisation:
+
+          * means = the point positions;
+          * the degree-0 SH band reproduces the point's colour through
+            ``sh_to_rgb`` (``(rgb/255 - 0.5) / C0``), higher bands zero;
+          * isotropic scales, std-dev = sqrt of the mean squared distance to
+            the 3 nearest neighbours (:func:`knn_mean_sq_dist`);
+          * identity rotations; opacity ``initial_opacity``.
+        """
+        from gsplat_tpu_torch.ops.sh import SH_C0
+
+        dev = resolve_device(device)
+        xyz = torch.as_tensor(xyzs, dtype=dtype, device=dev)
+        n = xyz.shape[0]
+        rgb = torch.as_tensor(rgbs, dtype=dtype, device=dev) / 255.0
+        sh = torch.zeros((n, 16, 3), dtype=dtype, device=dev)
+        sh[:, 0, :] = (rgb - 0.5) / SH_C0
+        with stage("knn_mean_sq_dist"):
+            dist2 = knn_mean_sq_dist(xyz).clamp(min=1e-7)
+        log_scales = (0.5 * torch.log(dist2))[:, None].repeat(1, 3)
+        quats = torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=dtype, device=dev).repeat(n, 1)
+        logit = float(np.log(initial_opacity / (1.0 - initial_opacity)))
+        return cls(xyz, log_scales, quats, torch.full((n,), logit, dtype=dtype, device=dev), sh)
+
+
+def knn_mean_sq_dist(xyz: torch.Tensor, k: int = 3, chunk: Optional[int] = None) -> torch.Tensor:
+    """Mean squared distance from each point to its ``k`` nearest neighbours
+    (itself excluded), ``[N]``, on the device of ``xyz``. Brute force in
+    blocks of ``chunk`` query points; the default keeps each block's
+    ``[chunk, N]`` distance matrix at 2^26 elements (256 MB in f32).
+
+    The distances are sums of squared coordinate differences, added x, y, z
+    in that order and each square rounded before the sum, as the JAX package
+    computes them (``torch.cdist``'s matmul expansion would round and cancel
+    differently)."""
+    n = xyz.shape[0]
+    k_eff = min(k + 1, n)  # +1: each query point is its own 0-distance neighbour
+    if k_eff <= 1:
+        return torch.ones((n,), dtype=xyz.dtype, device=xyz.device)
+    if chunk is None:
+        chunk = max(1, (1 << 26) // n)
+    cols = xyz.detach().T.contiguous()  # [3, N]
+    out = []
+    for start in range(0, n, chunk):
+        q = cols[:, start:start + chunk, None]  # [3, c, 1]
+        d2 = None
+        for axis in range(3):
+            d = q[axis] - cols[axis][None, :]  # [c, N]
+            d.mul_(d)  # its own rounding: no fused multiply-add into the sum
+            d2 = d if d2 is None else d2.add_(d)
+        top = torch.topk(d2, k_eff, dim=1, largest=False).values  # ascending; top[:, 0] is the point itself
+        out.append(top[:, 1:].mean(dim=1))
+    return torch.cat(out)
 
 
 DEAD_OPACITY_LOGIT = -30.0

@@ -15,6 +15,8 @@ depth-sliced path (``render/sliced.py``) instead, on any device.
 
 from __future__ import annotations
 
+import dataclasses
+from types import SimpleNamespace
 from typing import Tuple
 
 import torch
@@ -26,7 +28,7 @@ from gsplat_tpu_torch.ops import binning
 from gsplat_tpu_torch.ops.camera import CameraArrays, CameraParams
 from gsplat_tpu_torch.ops.compositing import render_oracle
 from gsplat_tpu_torch.ops.projection import Preprocessed, preprocess_gaussians_from_params
-from gsplat_tpu_torch.ops.sh import sh_to_rgb
+from gsplat_tpu_torch.ops.sh import SH_C0, sh_to_rgb
 from gsplat_tpu_torch.render.sliced import render_sliced_tiles
 from gsplat_tpu_torch.render.tile_torch import tiles_to_image
 from gsplat_tpu_torch.utils.stages import stage
@@ -80,6 +82,20 @@ def render_traced(
     """Render one view. Returns (image ``[H, W, 3]``, transmittance
     ``[H, W]``). ``screen_offset`` ([N, 2], optional) shifts pixel-space
     means (the densifying trainer's viewspace-gradient probe)."""
+    return render_with_preprocess(model, cam, width, height, cfg, screen_offset)[:2]
+
+
+def render_with_preprocess(
+    model: GaussianModel,
+    cam: CameraArrays,
+    width: int,
+    height: int,
+    cfg: RasterConfig,
+    screen_offset=None,
+) -> Tuple[torch.Tensor, torch.Tensor, Preprocessed]:
+    """:func:`render_traced` that also returns the view's preprocess (the
+    densifying trainer reads the projected radii from it instead of running
+    a second preprocess)."""
     with stage("preprocess"):
         prep = preprocess_traced(model, cam, width, height, cfg, screen_offset)
     with stage("pack_features"):
@@ -102,7 +118,39 @@ def render_traced(
         return (
             tiles_to_image(color, width, height, cfg.tile_size),
             tiles_to_image(trans, width, height, cfg.tile_size),
+            prep,
         )
+
+
+def render_depth(
+    model: GaussianModel,
+    cam: CameraArrays,
+    width: int,
+    height: int,
+    cfg: RasterConfig = RasterConfig(),
+    near: float = 0.2,
+    far: float = 100.0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Expected-depth map: each gaussian's camera-space z, alpha-composited
+    through the standard pipeline (depth rides the degree-0 SH channel, so
+    the compositor is the colour one and the result is differentiable like
+    :func:`render`).
+
+    Returns (depth ``[H, W]``, transmittance ``[H, W]``): ``depth`` is the
+    T-weighted expected camera depth in [near, far] units; pixels the
+    splats never cover carry depth 0 and transmittance 1. Divide by
+    ``(1 - trans)`` for an occupancy-normalised map."""
+    means = model.means
+    z = means[:, 0] * cam.w2c_t[0, 2] + means[:, 1] * cam.w2c_t[1, 2] + means[:, 2] * cam.w2c_t[2, 2] + cam.w2c_t[3, 2]
+    depth_norm = torch.clamp((z - near) / (far - near), 0.0, 1.0)
+    # sh_to_rgb computes C0*sh0 + 0.5 and clamps to [0, 1], so
+    # sh0 = (d - 0.5)/C0 gives back d for d in [0, 1] (ops/sh.py).
+    sh0 = ((depth_norm - 0.5) / SH_C0)[:, None, None].expand(-1, 1, 3)
+    sh = torch.cat([sh0, sh0.new_zeros((sh0.shape[0], model.sh.shape[1] - 1, 3))], dim=1)
+    # The model's geometry with the depth colour: what preprocess_traced reads.
+    depth_model = SimpleNamespace(means=means, quats=model.quats, sh=sh, scales=model.scales, opacity=model.opacity)
+    img, trans = render_traced(depth_model, cam, width, height, dataclasses.replace(cfg, sh_degree=0))
+    return img[:, :, 0] * (far - near) + near * (1.0 - trans), trans
 
 
 def render(

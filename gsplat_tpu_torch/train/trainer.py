@@ -5,10 +5,10 @@ learning rates, Adam, L1 + D-SSIM loss. One step renders the view with
 gradients on, composites it onto the background through its
 transmittance, takes the loss, runs the backward (the hand-written
 backward compositor, then autograd through the preprocess) and updates
-the model in place.
-
-Not ported yet: densification (``TrainConfig.densify``) and checkpointing
-of the loop state (``checkpoint_dir``); both raise ``NotImplementedError``.
+the model in place. With ``TrainConfig.densify`` the step also reads the
+viewspace gradient and the projected radii that adaptive density control
+accumulates (``train/densify.py``); ``fit`` can checkpoint its whole loop
+state and resume from it (``train/checkpoint.py``).
 """
 
 from __future__ import annotations
@@ -22,7 +22,9 @@ import torch
 from gsplat_tpu_torch.config import RasterConfig, TrainConfig
 from gsplat_tpu_torch.models.gaussians import GaussianModel
 from gsplat_tpu_torch.ops.camera import CameraArrays, CameraParams, camera_center
-from gsplat_tpu_torch.render.pipeline import binning_stats, render_traced, required_max_pairs
+from gsplat_tpu_torch.render.pipeline import binning_stats, render_with_preprocess, required_max_pairs
+from gsplat_tpu_torch.train import checkpoint as CK
+from gsplat_tpu_torch.train import densify as D
 from gsplat_tpu_torch.train.loss import psnr, rgb_loss
 from gsplat_tpu_torch.utils.logging import get_logger
 from gsplat_tpu_torch.utils.progress import progress
@@ -129,10 +131,12 @@ class Trainer:
             return colour.to(device, non_blocking=True)
         return torch.zeros(3, device=device)
 
-    def _step(self, model, optimizer, cam, target, bg, width, height, cfg) -> Dict[str, torch.Tensor]:
+    def _step(self, model, optimizer, cam, target, bg, width, height, cfg, screen_offset=None):
+        """One update. Returns (metrics, the preprocess of the model before
+        the update); ``screen_offset`` is passed to the render."""
         optimizer.zero_grad(set_to_none=True)
         with stage("forward"):
-            image, trans = render_traced(model, cam, width, height, cfg)
+            image, trans, prep = render_with_preprocess(model, cam, width, height, cfg, screen_offset)
             image = image + trans[..., None] * bg
         with stage("loss"):
             loss = rgb_loss(image, target, self.train.ssim_weight)
@@ -141,7 +145,21 @@ class Trainer:
         with stage("optimizer"):
             optimizer_step(optimizer, self.train)
         with torch.no_grad():
-            return {"loss": loss.detach(), "psnr": psnr(image, target)}
+            return {"loss": loss.detach(), "psnr": psnr(image, target)}, prep
+
+    def _step_vs(self, model, optimizer, cam, target, bg, width, height, cfg):
+        """The densifying step: also differentiates the loss with respect to
+        an all-zero pixel-space offset on the projected means, 3DGS's
+        viewspace gradient, and reads the view's projected radii (the input
+        of the screen-size prune) from the render's own preprocess of the
+        model before the update. Returns (metrics, viewspace gradient
+        ``[C, 2]``, radii ``[C]``)."""
+        offset = torch.zeros((model.num_gaussians, 2), dtype=model.means.dtype, device=model.means.device,
+                             requires_grad=True)
+        metrics, prep = self._step(model, optimizer, cam, target, bg, width, height, cfg, offset)
+        with torch.no_grad():
+            radii = D.screen_radii(prep.conics, prep.active)
+        return metrics, offset.grad, radii
 
     def train_step(
         self,
@@ -158,7 +176,7 @@ class Trainer:
         with stage("camera"):
             cam = CameraArrays.from_params(camera, dtype=model.means.dtype, device=dev)
             bg = self.draw_background(dev)
-        return self._step(model, optimizer, cam, target, bg, camera.width, camera.height, self.raster)
+        return self._step(model, optimizer, cam, target, bg, camera.width, camera.height, self.raster)[0]
 
     def check_capacity(self, model: GaussianModel, camera: CameraParams) -> RasterConfig:
         """Warn on pair-buffer overflow for this (model, view); returns the
@@ -192,18 +210,54 @@ class Trainer:
         steps: Optional[int] = None,
         log_fn=None,
         checkpoint_dir: Optional[str] = None,
+        resume: bool = False,
     ) -> Tuple[GaussianModel, List[Dict[str, float]]]:
-        """Round-robin over (camera, ground-truth image ``[H, W, 3]``) views,
-        updating ``model`` in place. Returns (model, history), one history
-        record every ``log_every`` steps and at the last step (the only
-        host syncs of the loop besides the capacity checks)."""
-        if checkpoint_dir:
-            raise NotImplementedError("checkpointing the training loop is not ported yet")
+        """Round-robin over (camera, ground-truth image ``[H, W, 3]``) views.
+        Returns (model, history), one history record every ``log_every``
+        steps and at the last step.
+
+        Without densification the given ``model`` is updated in place and
+        returned. With ``train.densify`` it is first copied into a
+        fixed-capacity pool (``train/densify.py``); the viewspace gradient
+        and projected radii are accumulated every step, the clone/split/prune
+        pass runs at the configured cadence, and the returned model is the
+        pool compacted to its live gaussians.
+
+        With ``checkpoint_dir`` the whole loop state (model, optimizer,
+        next step, densify accumulator and generator) is saved to
+        ``<dir>/train_state.pt`` every ``train.checkpoint_every`` steps and
+        at the end; ``resume=True`` restores it, when present, in place of
+        ``model`` (on ``model``'s device) and continues from the saved step
+        with the same view rotation and random draws, so an interrupted run
+        reaches the parameters of an uninterrupted one. History then covers
+        the resumed steps only.
+        """
         steps = steps if steps is not None else self.train.steps
-        optimizer = self.init_state(model)
+        dc = self.train.densify
+        dev = model.means.device
+        dstate = generator = optimizer = None
+        start_step = 0
+        if resume and checkpoint_dir and CK.has_loop_state(checkpoint_dir):
+            model, optimizer, start_step, dstate, generator = CK.restore_loop_state(
+                checkpoint_dir, self.init_state, device=dev
+            )
+            logger.info("resumed from %s at step %d", CK.loop_state_path(checkpoint_dir), start_step)
+            if self.train.background == "random":
+                # Replay the numpy RNG to the resume point, so the background
+                # sequence goes on where the interrupted run left it.
+                for _ in range(start_step):
+                    self._bg_rng.uniform(size=3)
+        if dc is not None:
+            extent = D.camera_extent([c for c, _ in views])
+            if optimizer is None:
+                model = D.init_pool(model, dc)
+                dstate = D.DensifyState.zero(model.num_gaussians, dev)
+                generator = torch.Generator(device=dev).manual_seed(0)
+        if optimizer is None:
+            optimizer = self.init_state(model)
         history: List[Dict[str, float]] = []
-        self.check_capacity(model, views[0][0])
-        for step in progress(range(steps), desc="finetune", enabled=self.show_progress):
+        self.check_capacity(model, views[start_step % len(views)][0])
+        for step in progress(range(start_step, steps), desc="finetune", enabled=self.show_progress):
             camera, target = views[step % len(views)]
             # 3DGS SH warmup: view-dependent colour is introduced band by band.
             step_cfg = self.raster
@@ -211,12 +265,24 @@ class Trainer:
                 deg = min(step // self.train.sh_warmup_every, self.raster.sh_degree)
                 if deg != self.raster.sh_degree:
                     step_cfg = dataclasses.replace(self.raster, sh_degree=deg)
-            dev = model.means.device
             cam = CameraArrays.from_params(camera, dtype=model.means.dtype, device=dev)
-            metrics = self._step(
-                model, optimizer, cam, target, self.draw_background(dev),
-                camera.width, camera.height, step_cfg,
-            )
+            args = (model, optimizer, cam, target, self.draw_background(dev), camera.width, camera.height, step_cfg)
+            if dc is None:
+                metrics, _ = self._step(*args)
+            else:
+                metrics, vs_grad, radii = self._step_vs(*args)
+                dstate = D.accumulate(dstate, vs_grad, camera.width, camera.height, radii)
+                if dc.start <= step < dc.until and step > 0 and step % dc.every == 0:
+                    _, touched, dstats = D.densify_prune_step(model, dstate, generator, extent, dc, step=step)
+                    D.reset_opt_rows(optimizer, touched)
+                    dstate = D.DensifyState.zero(model.num_gaussians, dev)
+                    logger.info(
+                        "densify @%d: +%d clone +%d split -%d prune (%d alive)",
+                        step, dstats["cloned"], dstats["split"], dstats["pruned"], dstats["alive"],
+                    )
+                    self.check_capacity(model, camera)
+                if dc.opacity_reset_every and step > 0 and step % dc.opacity_reset_every == 0:
+                    D.reset_opacity(model)
             if step % self.train.log_every == 0 or step == steps - 1:
                 record = {k: float(v) for k, v in metrics.items()}
                 record["step"] = step
@@ -225,4 +291,13 @@ class Trainer:
                     log_fn(record)
                 if step > 0:  # splats grow during training; re-check budget
                     self.check_capacity(model, views[step % len(views)][0])
+            if (checkpoint_dir and self.train.checkpoint_every > 0
+                    and (step + 1) % self.train.checkpoint_every == 0 and step + 1 < steps):
+                CK.save_loop_state(checkpoint_dir, model, optimizer, step + 1, dstate, generator)
+        if checkpoint_dir:
+            # The final state, before compaction (the densify state describes
+            # the pool): a later resume with more steps continues from here.
+            CK.save_loop_state(checkpoint_dir, model, optimizer, steps, dstate, generator)
+        if dc is not None:
+            model = D.compact(model)
         return model, history

@@ -358,3 +358,91 @@ def test_culled_kernels_match_plain(device, kind, tiling):
         torch.testing.assert_close(c_out[:, 1], pc_out[:, 1], rtol=RTOL, atol=ATOL)
         _close_to_max(c_out[:, 0], pc_out[:, 0])
         assert torch.equal(rows, rows2) and torch.equal(rows, c_rows)
+
+
+def _pool_arrays(c, seed):
+    """A random densify pool: dead slots, low-opacity slots, a spread of
+    scales, and an accumulated viewspace state (sum, count, max radius)."""
+    rng = np.random.default_rng(seed)
+    arrays = {
+        "means": rng.uniform(-1, 1, (c, 3)).astype(np.float32),
+        "log_scales": rng.uniform(-5.0, -0.5, (c, 3)).astype(np.float32),
+        "quats": rng.normal(size=(c, 4)).astype(np.float32),
+        "opacity_logits": rng.uniform(-7.0, 4.0, c).astype(np.float32),
+        "sh": (rng.normal(size=(c, 16, 3)) * 0.3).astype(np.float32),
+    }
+    arrays["opacity_logits"][rng.uniform(size=c) > 0.6] = -30.0
+    count = rng.integers(0, 4, c).astype(np.int32)
+    state = ((rng.uniform(0, 4, c) * 1e-4 * count).astype(np.float32), count,
+             np.ceil(rng.uniform(0, 60, c)).astype(np.float32))
+    return arrays, state
+
+
+def test_densify_pass_on_card_matches_cpu(device):
+    """One clone/split/prune pass with the same pool, state and split
+    samples on the card and on the CPU: the same touched rows and stats,
+    and bitwise the same pool except the means of new split halves, whose
+    offsets ``R @ (exp(log_scale) * eps)`` take ``exp`` from the card's and
+    the CPU's own libraries, which may round one ulp apart: those within
+    1e-6 of each row's largest component."""
+    from gsplat_tpu_torch.train import densify as D
+
+    arrays, state = _pool_arrays(4096, 3)
+    eps = torch.randn((4096, 3), generator=torch.Generator().manual_seed(0))
+    cfg = tgs.DensifyConfig(grad_threshold=1e-4, percent_dense=0.05, size_prune_start=0, max_screen_size=40.0)
+    outs = []
+    for dev in (device, torch.device("cpu")):
+        model = tgs.GaussianModel.from_arrays(arrays, device=dev)
+        st = D.DensifyState(*(torch.from_numpy(x).to(dev) for x in state))
+        _, touched, stats = D._densify_prune_step(model, st, eps.to(dev), 2.0, cfg, 10)
+        outs.append((model, touched.cpu(), stats))
+    (card, c_touched, c_stats), (cpu, touched, stats) = outs
+    assert c_stats == stats and stats["cloned"] > 0 and stats["split"] > 0 and stats["pruned"] > 0, stats
+    assert torch.equal(c_touched, touched)
+    for name in ("log_scales", "quats", "opacity_logits", "sh"):
+        assert torch.equal(getattr(card, name).detach().cpu(), getattr(cpu, name).detach()), name
+    got, want = card.means.detach().cpu(), cpu.means.detach()
+    new_rows = touched & D.alive_mask(cpu)
+    assert torch.equal(got[~new_rows], want[~new_rows])
+    scale = want[new_rows].abs().amax(dim=1, keepdim=True)
+    assert bool(((got[new_rows] - want[new_rows]).abs() <= 1e-6 * scale).all())
+
+
+def test_densifying_fit_resumes_bitwise_on_card(device, tmp_path):
+    """A densifying fit at 256x192 (passes at steps 3 and 6), interrupted
+    after step 4 and resumed by a fresh trainer from its loop checkpoint,
+    reaches the uninterrupted run's parameters and losses bitwise."""
+    rng = np.random.default_rng(9)
+    n, w, h = 3000, 256, 192
+    arrays = {
+        "means": np.stack([rng.uniform(-1, 1, n), rng.uniform(-0.8, 0.8, n), rng.uniform(-1, 1, n)], 1).astype(np.float32),
+        "log_scales": rng.uniform(-4.0, -2.0, (n, 3)).astype(np.float32),
+        "quats": rng.normal(size=(n, 4)).astype(np.float32),
+        "opacity_logits": rng.uniform(-1.0, 3.0, n).astype(np.float32),
+        "sh": (rng.normal(size=(n, 16, 3)) * 0.3).astype(np.float32),
+    }
+    fx = 0.8 * w
+    cams = [tgs.CameraParams(w, h, 2 * math.atan(w / (2 * fx)), 2 * math.atan(h / (2 * fx)), fx, fx,
+                             (math.cos(a / 2), 0.0, math.sin(a / 2), 0.0), (shift, 0.0, 4.0))
+            for a, shift in ((0.0, 0.0), (0.1, 0.3), (-0.1, -0.3))]
+    cfg = tgs.RasterConfig(tile_size=16, chunk_size=8, pair_block=8, max_pairs=1 << 19)
+    with torch.no_grad():
+        target_model = tgs.GaussianModel.from_arrays(arrays, device=device)
+        views = [(cam, tgs.render(target_model, cam, cfg)[0]) for cam in cams]
+    arrays["means"] += rng.normal(0, 0.02, arrays["means"].shape).astype(np.float32)
+    tc = tgs.TrainConfig(steps=8, log_every=1, ssim_weight=0.2, checkpoint_every=2, background="random",
+                         densify=tgs.DensifyConfig(every=3, start=1, grad_threshold=5e-4, size_prune_start=0,
+                                                   prune_scale_extent=1.0, max_screen_size=10.0, percent_dense=0.5,
+                                                   opacity_reset_every=5, pool_factor=1.5))
+    ref, ref_hist = tgs.Trainer(raster=cfg, train=tc, show_progress=False).fit(
+        tgs.GaussianModel.from_arrays(arrays, device=device), views)
+    ckpt = str(tmp_path / "run")
+    tgs.Trainer(raster=cfg, train=tc, show_progress=False).fit(
+        tgs.GaussianModel.from_arrays(arrays, device=device), views, steps=5, checkpoint_dir=ckpt)
+    res, res_hist = tgs.Trainer(raster=cfg, train=tc, show_progress=False).fit(
+        tgs.GaussianModel.from_arrays(arrays, device=device), views, checkpoint_dir=ckpt, resume=True)
+    assert [r["step"] for r in res_hist] == [5, 6, 7]
+    assert res_hist == ref_hist[5:]
+    assert ref.num_gaussians != n and ref.means.device.type == "cuda"
+    for name in ("means", "log_scales", "quats", "opacity_logits", "sh"):
+        assert torch.equal(getattr(res, name), getattr(ref, name)), name

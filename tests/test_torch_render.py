@@ -72,6 +72,40 @@ def test_render_matches_jax_and_oracle(seed, n, angle, width, height, sh_degree)
     close(o_trans, j_otrans)
 
 
+@pytest.mark.parametrize("near,far", [(0.2, 100.0), (3.5, 4.5)])
+def test_render_depth_matches_jax(near, far):
+    """The expected-depth map and its transmittance against JAX's at rtol
+    1e-5 / atol 1e-6, and the gradient of a weighted sum of the depth with
+    respect to the means against ``jax.grad`` at rtol 2e-3 / atol 5e-5 of
+    the scale (``tests/test_torch_grad.py``). The (3.5, 4.5) range clamps
+    the depths of the nearest and farthest splats."""
+    import jax
+
+    arrays = random_splat_arrays(np.random.default_rng(17), 200)
+    jcam = orbit_camera(0.3, width=48, height=32)
+    weights = np.random.default_rng(18).normal(size=(32, 48)).astype(np.float32)
+    jmodel = jgs.GaussianModel.from_arrays(arrays)
+    jcam_arrays = jgs.CameraArrays.from_params(jcam)
+    j_depth, j_trans = jgs.render_depth(jmodel, jcam_arrays, 48, 32, jax_cfg(), near, far)
+
+    def j_loss(means):
+        model = jgs.GaussianModel(means, jmodel.log_scales, jmodel.quats, jmodel.opacity_logits, jmodel.sh)
+        return jnp.sum(jgs.render_depth(model, jcam_arrays, 48, 32, jax_cfg(), near, far)[0] * weights)
+
+    j_grad = np.asarray(jax.grad(j_loss)(jmodel.means))
+    model = tgs.GaussianModel.from_arrays(arrays, device="cpu")
+    depth, trans = tgs.render_depth(model, tgs.CameraArrays.from_params(port_camera(jcam), device="cpu"), 48, 32,
+                                    port_cfg(), near, far)
+    close(depth.detach(), j_depth)
+    close(trans.detach(), j_trans)
+    d, tr = depth.detach().numpy(), trans.detach().numpy()
+    assert (tr < 0.5).mean() > 0.1
+    assert (d >= near * (1 - tr) - 1e-5).all() and (d <= far * (1 - tr) + 1e-4).all()
+    (grad,) = torch.autograd.grad((depth * torch.from_numpy(weights)).sum(), [model.means])
+    assert np.abs(j_grad).max() > 0
+    np.testing.assert_allclose(grad.numpy(), j_grad, rtol=2e-3, atol=5e-5 * np.abs(j_grad).max())
+
+
 def test_render_batch_and_stats_match_jax():
     arrays = random_splat_arrays(np.random.default_rng(2), 200)
     jmodel = jgs.GaussianModel.from_arrays(arrays)

@@ -205,13 +205,7 @@ def test_check_capacity_resizes_like_jax():
     assert any("overflow" in r for r in records), records
 
 
-def test_unported_training_options_are_refused():
-    with pytest.raises(NotImplementedError, match="densify"):
-        tgs.TrainConfig(densify=object())
-    trainer = tgs.Trainer(raster=tgs.RasterConfig(**SMALL), train=tgs.TrainConfig(), show_progress=False)
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        trainer.fit(tgs.GaussianModel.from_arrays(random_splat_arrays(np.random.default_rng(0), 8), device="cpu"),
-                    [], checkpoint_dir="unused")
+def test_invalid_background_is_refused():
     with pytest.raises(ValueError):
         tgs.Trainer(raster=tgs.RasterConfig(**SMALL), train=tgs.TrainConfig(background="blue"))
 
