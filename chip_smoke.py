@@ -4,7 +4,7 @@
 Usage: ``python3 chip_smoke.py`` from the repository root, on a machine with
 one NVIDIA H100 (or another sm_90a card) and the CUDA toolkit. It builds the
 port's CUDA kernels from ``gsplat_tpu_torch/csrc`` (into ``build/kernels``),
-then runs nine phases, each printing one JSON line:
+then runs ten phases, each printing one JSON line:
 
   1. device: the card's name and power limit, torch/CUDA versions, kernel
      build time, the compiler's register report and each kernel's
@@ -52,7 +52,20 @@ then runs nine phases, each printing one JSON line:
      6-step ``fit`` with a loop checkpoint resumed by a fresh trainer to
      the same parameters bitwise, one densify pass, the densifying step
      against the plain one, checkpoint save and restore, the PLY round
-     trip and ``render_depth`` (one forward launch, depth in range).
+     trip and ``render_depth`` (one forward launch, depth in range);
+ 10. cli: the command line (``cli_phase``) on a scene written to a
+     temporary directory (``write_cli_scene``: the phase-3 model as the
+     checkpoint, four views whose targets are its own renders, 100K SfM
+     points drawn from it), driven in this process by
+     ``click.testing.CliRunner``: ``evaluate`` (one forward launch per
+     view, PSNR above 50 dB, SSIM above 0.99, each view's render ms), the
+     same with ``--slice-pairs`` (forward carry launches only, the same
+     ``metrics.json``), ``render``'s path (``render.png`` equal to the
+     view's target, 40 progressive frames whose last is within 1e-5 of the
+     render, the video), ``orbit`` (frame 0 equal to the target),
+     ``finetune`` for 6 steps and as 3 steps resumed to 6 (the same PLY
+     bytes), and ``train`` from the SfM points with a held-out view; each
+     command's launches and seconds.
 
 A kernel's bound counts the work its inputs need. ``bound_ms`` charges the
 gate (and its expf) only at the walked pair-pixels inside each pair's
@@ -65,8 +78,14 @@ the bytes read and written once. The script counts the pair-pixels of each
 kind and the (warp, pair) evaluations the culled kernels make
 (``warp_pairs``).
 
+The card's machine has no matplotlib (``PERF.md`` §3), which ``render``
+draws its comparison figure with, so phase 10 runs that command's path
+through its own helpers and ``gsplat_tpu_torch/utils/video.py`` and does not
+invoke it.
+
 It then prints ``nvidia-smi``'s name/power-limit line, the ``kernels`` JSON
-line and, last, ``{"ok": true, "device": {...}}``. Any failed check raises,
+line (each kernel's launches on the main path and in phases 9 and 10) and,
+last, ``{"ok": true, "device": {...}}``. Any failed check raises,
 so the script exits non-zero and prints no result; it also refuses to run
 without a CUDA device or without the ``gsplat_tpu_torch`` package beside it.
 It imports neither JAX nor the JAX package.
@@ -130,6 +149,15 @@ DENSIFY_STEPS = 12
 DENSIFY_POSES = [("bench", 0.0, 0.0), ("left", 0.05, 0.5), ("right", -0.05, -0.5)]  # name, yaw, x shift
 DENSIFY = dict(every=4, start=4, grad_threshold=1e-5, prune_scale_extent=0.25, max_screen_size=55.0,
                size_prune_start=4, percent_dense=0.1, opacity_reset_every=6, pool_factor=2.0)
+# The command line (phase 10) on a scene written to disk: the headline model
+# as the trained checkpoint; four views, the bench pose and three yaw and
+# x-shift moves, whose ground truth is the model's own render; an SfM cloud
+# drawn from the model (100K points: at 500K, knn_mean_sq_dist alone takes
+# 9.2 s, and phase 9 covers that size). The sliced `evaluate` slices 2^17
+# pairs.
+CLI_POSES = DENSIFY_POSES + [("far_left", 0.1, 1.0)]
+CLI_SFM_POINTS = 100_000
+CLI_SLICE_PAIRS = 1 << 17
 
 
 def emit(obj) -> None:
@@ -703,6 +731,253 @@ def densify_phase(cfg, dev, t_main: float):
     return out, launches, depth_launches
 
 
+def write_cli_scene(root: str, dev) -> dict:
+    """The scene phase 10 runs the command line on, written with the port's
+    own writers: ``sparse/0`` (one PINHOLE camera at the bench focal, the
+    ``CLI_POSES`` images, ``CLI_SFM_POINTS`` points drawn from the headline
+    model and coloured by its DC band), the headline model as
+    ``model/point_cloud/iteration_30000/point_cloud.ply``, and as each
+    view's ground truth ``images_1/<pose>.png`` the model's render from the
+    camera read back through ``read_scene`` and ``CameraParams.from_colmap``
+    with the CLI's default raster settings, saved by ``save_frame``.
+    Returns the seconds of each part."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    import gsplat_tpu_torch as gs
+    from gsplat_tpu_torch import cli as C
+    from gsplat_tpu_torch.io import colmap
+    from gsplat_tpu_torch.io.ply import save_splat_arrays
+    from gsplat_tpu_torch.io.scene import checkpoint_ply_path, read_scene
+    from gsplat_tpu_torch.ops.sh import SH_C0
+    from gsplat_tpu_torch.utils.video import save_frame
+
+    out = {}
+    t0 = time.perf_counter()
+    sparse = os.path.join(root, "sparse/0")
+    fx = 0.8 * WIDTH  # bench_camera's focal
+    colmap.write_intrinsics_binary(os.path.join(sparse, "cameras.bin"), {1: colmap.Camera(
+        id=1, model="PINHOLE", width=WIDTH, height=HEIGHT, params=np.array([fx, fx, WIDTH / 2, HEIGHT / 2]))})
+    images = {}
+    for i, (name, yaw, shift) in enumerate(CLI_POSES):
+        cam = bench_camera(WIDTH, HEIGHT, yaw, shift)
+        images[i] = colmap.BaseImage(id=i, qvec=np.array(cam.qvec), tvec=np.array(cam.tvec), camera_id=1,
+                                     name=f"{name}.png", xys=np.zeros((0, 2)), point3D_ids=np.zeros((0,), np.int64))
+    colmap.write_extrinsics_binary(os.path.join(sparse, "images.bin"), images)
+    with torch.inference_mode():
+        model = build_scene(NUM_GAUSSIANS, 0.0, dev)
+        pick = torch.randperm(NUM_GAUSSIANS, generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+        pick = pick[:CLI_SFM_POINTS]
+        rgbs = ((model.sh[pick, 0] * SH_C0 + 0.5).clamp(0.0, 1.0) * 255.0).round().to(torch.uint8).cpu().numpy()
+        colmap.write_points3D_binary(os.path.join(sparse, "points3D.bin"), model.means[pick].double().cpu().numpy(),
+                                     rgbs)
+    save_splat_arrays(checkpoint_ply_path(os.path.join(root, "model")), model.to_arrays())
+    out["write_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    cfg = C._raster_config(32, 32, 1 << 22, 0.0, dev.type)
+    scenes, cams = read_scene(root)
+    os.makedirs(os.path.join(root, "images_1"))
+    with torch.inference_mode():
+        frames = {image.name: gs.render(model, gs.CameraParams.from_colmap(image, cams[image.camera_id], WIDTH, HEIGHT),
+                                        cfg)[0].cpu().numpy() for image in scenes.values()}
+    with ThreadPoolExecutor(len(frames)) as pool:  # a 1080p PNG takes about a second to compress
+        for done in [pool.submit(save_frame, os.path.join(root, "images_1", name), f) for name, f in frames.items()]:
+            done.result()
+    out["targets_s"] = time.perf_counter() - t0
+    return out
+
+
+def cli_phase(dev, t_main: float):
+    """Phase 10: the command line (``gsplat_tpu_torch/cli.py``) on the
+    scene of :func:`write_cli_scene`, driven in this process through
+    ``click.testing.CliRunner`` so that the kernels' counts see every launch:
+    ``evaluate`` unsliced and sliced, ``render``'s path with its progressive
+    video, ``orbit``, ``finetune`` (and its resume) and ``train`` from the
+    SfM points. Each command's counts are set to 0 just before it and read
+    just after. Returns (the phase's record, each kernel's launches over
+    the phase)."""
+    import json
+    import re
+    import shutil
+    import tempfile
+    import traceback
+
+    import numpy as np
+    import torch
+    from click.testing import CliRunner
+    from PIL import Image
+
+    import gsplat_tpu_torch as gs
+    from gsplat_tpu_torch import cli as C
+    from gsplat_tpu_torch.io.scene import checkpoint_ply_path
+    from gsplat_tpu_torch.kernels.raster_bwd import backward_tiles, backward_tiles_carry
+    from gsplat_tpu_torch.kernels.raster_fwd import forward_tiles, forward_tiles_carry
+    from gsplat_tpu_torch.render import pipeline
+    from gsplat_tpu_torch.utils import video
+    from gsplat_tpu_torch.utils.logging import get_logger
+
+    kernels = {"raster_fwd": forward_tiles, "raster_bwd": backward_tiles, "raster_fwd_carry": forward_tiles_carry,
+               "raster_bwd_carry": backward_tiles_carry}
+    total = dict.fromkeys(kernels, 0)
+    out = {"poses": CLI_POSES, "sfm_points": CLI_SFM_POINTS, "ffmpeg": shutil.which("ffmpeg"), "commands": {}}
+
+    def counted(name, fn):
+        """Run ``fn`` with every count set to 0 first; record its seconds
+        and the launches it made."""
+        for k in kernels.values():
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        launches = {k: f.launches for k, f in kernels.items()}
+        out["commands"][name] = {"s": time.perf_counter() - t0, "launches": launches}
+        for k, n in launches.items():
+            total[k] += n
+        return launches
+
+    def invoke(args):
+        result = CliRunner().invoke(C.cli, args)
+        if result.exit_code != 0:
+            tb = "".join(traceback.format_exception(*result.exc_info)) if result.exc_info else ""
+            raise RuntimeError(f"{' '.join(args[:1])} exited {result.exit_code}: {result.output[-4000:]}\n{tb}")
+
+    def png(path):
+        with Image.open(path) as im:
+            return np.asarray(im.convert("RGB"))
+
+    def only(launches, **want):
+        return launches == {k: want.get(k, 0) for k in kernels}
+
+    log = LogLines()
+    logger = get_logger()
+    logger.addHandler(log)
+    with tempfile.TemporaryDirectory() as root:
+        out["scene"] = write_cli_scene(root, dev)
+        n_views = len(CLI_POSES)
+        target0 = os.path.join(root, "images_1", f"{CLI_POSES[0][0]}.png")
+        common = ["--input_dir", root, "--trained_model_path", os.path.join(root, "model"), "--scale-factor", "1",
+                  "--scene-index", "0", "--device", dev.type]
+
+        # evaluate: each view's render timed by CUDA events around render_traced.
+        spans, real_render_traced = [], pipeline.render_traced
+
+        def timed_render_traced(*args, **kwargs):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            result = real_render_traced(*args, **kwargs)
+            end.record()
+            spans.append((start, end))
+            return result
+
+        pipeline.render_traced = timed_render_traced
+        try:
+            launches = counted("evaluate", lambda: invoke(["evaluate", *common, "--output_path", f"{root}/eval"]))
+        finally:
+            pipeline.render_traced = real_render_traced
+        metrics = json.load(open(f"{root}/eval/metrics.json"))
+        out["evaluate"] = {"render_ms_per_view": [a.elapsed_time(b) for a, b in spans], "metrics": metrics}
+        check(only(launches, raster_fwd=n_views), f"evaluate: one forward launch per view: {launches}")
+        check(len(metrics["views"]) == n_views and metrics["mean_psnr"] > 50.0, f"evaluate PSNR: {metrics}")
+        check(all(v["ssim"] > 0.99 for v in metrics["views"]), f"evaluate SSIM: {metrics}")
+
+        launches = counted("evaluate_sliced", lambda: invoke(
+            ["evaluate", *common, "--slice-pairs", str(CLI_SLICE_PAIRS), "--output_path", f"{root}/eval_sliced"]))
+        check(launches["raster_fwd_carry"] >= n_views and only(launches, raster_fwd_carry=launches["raster_fwd_carry"]),
+              f"sliced evaluate: forward carry launches only: {launches}")
+        check(json.load(open(f"{root}/eval_sliced/metrics.json")) == metrics,
+              "the sliced evaluate's metrics.json equals the unsliced one")
+
+        # render's path without its matplotlib figure (the card's machine has
+        # no matplotlib, PERF.md §3): the view, render.png and the
+        # progressive video, through the command's own helpers.
+        render_dir = os.path.join(root, "render")
+        parts = {}
+
+        def render_path():
+            t0 = time.perf_counter()
+            cfg = C._raster_config(32, 32, 1 << 22, 0.0, dev.type)
+            model, camera, _, gt_path = C._load_scene(root, os.path.join(root, "model"), 0, 1, dev)
+            with torch.inference_mode():
+                cfg = C._check_pairs(model, camera, cfg, True)
+                image = gs.render(model, camera, cfg)[0].cpu().numpy()
+            os.makedirs(render_dir)
+            video.save_frame(os.path.join(render_dir, "render.png"), image)
+            parts["render_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            frames = video.progressive_frames(model, camera, cfg, num_frames=40)
+            torch.cuda.synchronize()
+            parts["progressive_frames_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            video.write_frames(render_dir, frames)
+            parts["write_frames_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            parts["video"] = os.path.basename(video.encode_video(render_dir, camera.width, camera.height))
+            parts["encode_s"] = time.perf_counter() - t0
+            parts["frames"] = len(frames)
+            parts["last_frame_max_abs_diff"] = float(np.abs(frames[-1] - image).max())
+
+        launches = counted("render", render_path)
+        out["render"] = parts
+        check(only(launches, raster_fwd=1 + parts["frames"]) and parts["frames"] == 40,
+              f"render: one forward launch for the view and one per progressive frame: {launches}")
+        check(np.array_equal(png(os.path.join(render_dir, "render.png")), png(target0)),
+              "render.png equals the view's target PNG")
+        check(parts["last_frame_max_abs_diff"] <= 1e-5, f"last progressive frame vs the render: {parts}")
+        shutil.rmtree(render_dir)
+
+        orbit_dir = os.path.join(root, "orbit")
+        launches = counted("orbit", lambda: invoke(["orbit", *common, "--num-frames", "8", "--output_path", orbit_dir]))
+        check(only(launches, raster_fwd=8), f"orbit: one forward launch per frame: {launches}")
+        check(np.array_equal(png(os.path.join(orbit_dir, "images", "image_iter_0000000.png")), png(target0)),
+              "orbit frame 0 (yaw 0) equals the bench view's target PNG")
+        out["orbit"] = {"video": [f for f in os.listdir(orbit_dir) if f.startswith("video_render")]}
+        shutil.rmtree(orbit_dir)
+
+        # finetune, uninterrupted and as 3 steps then a resume to 6.
+        ft = ["finetune", *common, "--no-densify"]
+        whole, split = os.path.join(root, "ft_whole"), os.path.join(root, "ft_split")
+        log.lines.clear()
+        launches = counted("finetune", lambda: invoke([*ft, "--steps", "6", "--checkpoint-every", "3",
+                                                       "--output_path", whole]))
+        losses = [float(m.group(1)) for m in map(re.compile(r"step=\d+ loss=(\S+)").match, log.lines) if m]
+        out["finetune"] = {"logged_losses": losses}
+        check(only(launches, raster_fwd=6, raster_bwd=6), f"finetune: a forward and a backward per step: {launches}")
+        check(len(losses) == 2 and all(math.isfinite(x) for x in losses), f"finetune losses: {log.lines}")
+        counted("finetune_3", lambda: invoke([*ft, "--steps", "3", "--output_path", split]))
+        launches = counted("finetune_resume", lambda: invoke([*ft, "--steps", "6", "--resume", "--output_path", split]))
+        check(only(launches, raster_fwd=3, raster_bwd=3), f"the resumed finetune runs steps 3-5: {launches}")
+        plys = [open(checkpoint_ply_path(d, 30001), "rb").read() for d in (whole, split)]
+        check(plys[0] == plys[1], "the resumed finetune's PLY equals the uninterrupted run's bitwise")
+        out["finetune"]["ply_bytes"] = len(plys[0])
+        del plys
+        shutil.rmtree(whole)
+        shutil.rmtree(split)
+
+        # train from the SfM points, holding out view 0.
+        train_dir = os.path.join(root, "train")
+        log.lines.clear()
+        launches = counted("train", lambda: invoke(
+            ["train", "--input_dir", root, "--scale-factor", "1", "--device", dev.type, "--steps", "4",
+             "--no-densify", "--test-every", "4", "--output_path", train_dir]))
+        held = [m.groups() for m in map(re.compile(r"held-out \((\d+) views\): PSNR (\S+)  SSIM (\S+)").match,
+                                        log.lines) if m]
+        check(len(held) == 1 and held[0][0] == "1" and math.isfinite(float(held[0][1])), f"held-out: {log.lines}")
+        out["train"] = {"held_out_psnr": float(held[0][1]), "held_out_ssim": float(held[0][2]),
+                        "logged_losses": [float(m.group(1)) for m in
+                                          map(re.compile(r"step=\d+ loss=(\S+)").match, log.lines) if m]}
+        check(only(launches, raster_fwd=4 + 1, raster_bwd=4),
+              f"train: a forward and a backward per step, a forward for the held-out view: {launches}")
+        check(os.path.isfile(checkpoint_ply_path(train_dir, 30000)), "train exported its PLY")
+    logger.removeHandler(log)
+    out["launches"] = total
+    out["elapsed_s"] = time.perf_counter() - t_main  # since main() began, the build included
+    return out, total
+
+
 def main() -> int:
     t_main = time.perf_counter()
     import torch
@@ -1144,31 +1419,38 @@ def main() -> int:
     dense, dense_launches, depth_launches = densify_phase(cfg, dev, t_main)
     emit({"phase": "densify", **dense})
 
+    # -- phase 10: the command line --
+    cli, cli_launches = cli_phase(dev, t_main)
+    emit({"phase": "cli", **cli})
+
     print(smi, flush=True)
     emit({"kernels": [
         {
             "name": "raster_fwd", "route": "cuda", "source": "gsplat_tpu_torch/csrc/raster_fwd.cu",
             "replaces": "gsplat_tpu/kernels/raster_fwd.py:68", "launches": launches,
             "densify_fit_launches": dense_launches["raster_fwd"], "render_depth_launches": depth_launches,
+            "cli_launches": cli_launches["raster_fwd"],
             "max_abs_err": frame_err, "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None,
             **bound_fields(fwd_bound, kernel_ms),
         },
         {
             "name": "raster_bwd", "route": "cuda", "source": "gsplat_tpu_torch/csrc/raster_bwd.cu",
             "replaces": "gsplat_tpu/kernels/raster_bwd.py:45", "launches": train_launches["raster_bwd"],
-            "densify_fit_launches": dense_launches["raster_bwd"],
+            "densify_fit_launches": dense_launches["raster_bwd"], "cli_launches": cli_launches["raster_bwd"],
             "max_abs_err": frame["rows"]["max_abs_err"], "ms": bwd_ms, "plain_ms": bwd_plain_ms, "library_ms": None,
             **bound_fields(bwd_bound, bwd_ms),
         },
         {
             "name": "raster_fwd_carry", "route": "cuda", "source": "gsplat_tpu_torch/csrc/raster_fwd.cu",
             "replaces": "gsplat_tpu/kernels/raster_fwd.py:266", "launches": fwd_carry_launches,
+            "cli_launches": cli_launches["raster_fwd_carry"],
             "max_abs_err": fwd_carry_err, "ms": fwd_carry_ms, "plain_ms": fwd_carry_plain_ms, "library_ms": None,
             **bound_fields(fwd_carry_bound, fwd_carry_ms),
         },
         {
             "name": "raster_bwd_carry", "route": "cuda", "source": "gsplat_tpu_torch/csrc/raster_bwd.cu",
             "replaces": "gsplat_tpu/kernels/raster_bwd.py:339", "launches": real_launches["raster_bwd_carry"],
+            "cli_launches": cli_launches["raster_bwd_carry"],
             "max_abs_err": real["first_slice_bwd"]["rows"]["max_abs_err"], "ms": bwd_carry_ms,
             "plain_ms": bwd_carry_plain_ms, "library_ms": None, **bound_fields(bwd_carry_bound, bwd_carry_ms),
         },

@@ -6,8 +6,10 @@ and its training (L1 + SSIM loss, gradients to every splat parameter, Adam,
 densification, loop checkpoints, training from SfM points) in PyTorch, with
 the forward and backward tile compositors as hand-written CUDA kernels for
 Hopper. Entry points run on the device of their tensors; the factories
-default to ``device="cuda"`` and raise when no card is present. This package imports
-neither JAX nor ``gsplat_tpu``.
+default to ``device="cuda"`` and raise when no card is present. The command
+line is ``gsplat_tpu_torch.cli`` (not imported here, so that importing the
+package loads neither ``click`` nor Pillow). This package imports neither
+JAX nor ``gsplat_tpu``.
 """
 
 from gsplat_tpu_torch.config import DensifyConfig, RasterConfig, TrainConfig

@@ -85,5 +85,8 @@ def sh_to_rgb(
     nb = basis.shape[-1]
     colors = torch.einsum("nb,nbc->nc", basis, sh_coeffs[:, :nb, :]) + 0.5
     if clamp:
-        colors = colors.clamp(0.0, 1.0)
+        # minimum/maximum rather than clamp: at a colour exactly 0 or 1 (a
+        # point of SfM colour 0 or 255 in from_points3d) they pass half the
+        # gradient, as jnp.clip does; torch.clamp passes all of it.
+        colors = torch.minimum(torch.maximum(colors, colors.new_zeros(())), colors.new_ones(()))
     return colors

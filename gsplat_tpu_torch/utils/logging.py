@@ -27,3 +27,10 @@ def get_logger(name: str = "gsplat_tpu_torch", level: int = logging.INFO) -> log
         logger.propagate = False
     logger.setLevel(level if _rank() == 0 else logging.ERROR)
     return logger
+
+
+def log_metrics(logger: logging.Logger, step: int, metrics: dict) -> None:
+    """One INFO line: ``step=<step>`` then ``key=value`` for each metric,
+    keys sorted, values as ``{:.5g}`` (the JAX package's text)."""
+    parts = " ".join(f"{k}={float(v):.5g}" for k, v in sorted(metrics.items()))
+    logger.info("step=%d %s", step, parts)

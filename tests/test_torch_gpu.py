@@ -28,7 +28,9 @@ bitwise to its plain version.
 """
 
 import dataclasses
+import json
 import math
+import os
 
 import numpy as np
 import pytest
@@ -446,3 +448,73 @@ def test_densifying_fit_resumes_bitwise_on_card(device, tmp_path):
     assert ref.num_gaussians != n and ref.means.device.type == "cuda"
     for name in ("means", "log_scales", "quats", "opacity_logits", "sh"):
         assert torch.equal(getattr(res, name), getattr(ref, name)), name
+
+
+def _write_cli_scene(root, width=256, height=192, n=2000, seed=11):
+    """A scene on disk for the command line, written with the port's own
+    writers: one PINHOLE camera, two views, a random model as the trained
+    checkpoint and random ground-truth PNGs."""
+    from PIL import Image
+
+    from gsplat_tpu_torch.io import colmap
+    from gsplat_tpu_torch.io.ply import save_splat_arrays
+    from gsplat_tpu_torch.io.scene import checkpoint_ply_path
+
+    rng = np.random.default_rng(seed)
+    save_splat_arrays(checkpoint_ply_path(os.path.join(root, "model")), {
+        "means": rng.uniform(-1, 1, (n, 3)).astype(np.float32),
+        "log_scales": rng.uniform(-4.0, -1.5, (n, 3)).astype(np.float32),
+        "quats": rng.normal(size=(n, 4)).astype(np.float32),
+        "opacity_logits": rng.uniform(-1.0, 4.0, n).astype(np.float32),
+        "sh": (rng.normal(size=(n, 16, 3)) * 0.3).astype(np.float32),
+    })
+    fx = 0.8 * width
+    colmap.write_intrinsics_binary(os.path.join(root, "sparse/0/cameras.bin"), {1: colmap.Camera(
+        id=1, model="PINHOLE", width=width, height=height, params=np.array([fx, fx, width / 2, height / 2]))})
+    images = {i: colmap.BaseImage(id=i, qvec=np.array([math.cos(a / 2), 0.0, math.sin(a / 2), 0.0]),
+                                  tvec=np.array([0.0, 0.0, 4.0]), camera_id=1, name=f"view_{i}.png",
+                                  xys=np.zeros((0, 2)), point3D_ids=np.zeros((0,), np.int64))
+              for i, a in enumerate((0.15, -0.1))}
+    colmap.write_extrinsics_binary(os.path.join(root, "sparse/0/images.bin"), images)
+    os.makedirs(os.path.join(root, "images_1"))
+    for image in images.values():
+        Image.fromarray(rng.integers(0, 256, (height, width, 3), dtype=np.uint8)).save(
+            os.path.join(root, "images_1", image.name))
+
+
+def test_cli_on_card_matches_cpu(device, tmp_path):
+    """``evaluate`` through the command line with ``--device cuda`` (one
+    forward launch per view) and ``--device cpu``: the same views, PSNR
+    within 1e-3 dB, SSIM within 1e-5. ``render``'s view and its
+    ``render.png`` through the command's own helpers (the command draws a
+    matplotlib figure, and the card's machine has no matplotlib): the card's
+    PNG within 1 LSB of the CPU's."""
+    from click.testing import CliRunner
+    from PIL import Image
+
+    from gsplat_tpu_torch import cli as C
+    from gsplat_tpu_torch.utils.video import save_frame
+
+    root = str(tmp_path / "scene")
+    _write_cli_scene(root)
+    common = ["--input_dir", root, "--trained_model_path", os.path.join(root, "model"), "--scale-factor", "1",
+              "--scene-index", "0", "--tile-size", "16", "--chunk-size", "8", "--max-pairs", str(1 << 16)]
+    metrics, pngs = {}, {}
+    for dev in ("cuda", "cpu"):
+        out = str(tmp_path / dev)
+        before = forward_tiles.launches
+        result = CliRunner().invoke(C.cli, ["evaluate", *common, "--device", dev, "--output_path", out])
+        assert result.exit_code == 0, result.output + repr(result.exception)
+        assert forward_tiles.launches == before + (2 if dev == "cuda" else 0)
+        with open(os.path.join(out, "metrics.json")) as f:
+            metrics[dev] = json.load(f)
+        cfg = C._raster_config(16, 8, 1 << 16, 0.0, dev)
+        model, camera, _, _ = C._load_scene(root, os.path.join(root, "model"), 0, 1, dev)
+        with torch.inference_mode():
+            save_frame(os.path.join(out, "render.png"), tgs.render(model, camera, cfg)[0].cpu().numpy())
+        pngs[dev] = np.asarray(Image.open(os.path.join(out, "render.png")).convert("RGB"), dtype=np.int16)
+    assert np.abs(pngs["cuda"] - pngs["cpu"]).max() <= 1
+    card, cpu = metrics["cuda"]["views"], metrics["cpu"]["views"]
+    assert [v["view"] for v in card] == [v["view"] for v in cpu] == ["view_0.png", "view_1.png"]
+    for a, b in zip(card, cpu):
+        assert abs(a["psnr"] - b["psnr"]) < 1e-3 and abs(a["ssim"] - b["ssim"]) < 1e-5, (a, b)

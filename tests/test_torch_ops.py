@@ -66,6 +66,28 @@ def test_sh_to_rgb(degree):
     close(got, want)
 
 
+def test_sh_to_rgb_grad_at_the_clamp_edges():
+    """A colour exactly 0 or 1 (``from_points3d`` of an SfM colour 0 or 255)
+    takes half the gradient through the clamp, as through ``jnp.clip``;
+    inside (0, 1) all of it, outside none."""
+    import jax
+
+    from gsplat_tpu_torch.ops.sh import SH_C0
+
+    rgb = np.array([[0.0, 1.0, 0.5], [-0.25, 1.25, 0.0]], np.float32)
+    sh = np.zeros((2, 16, 3), np.float32)
+    sh[:, 0] = (rgb - 0.5) / SH_C0
+    means = np.array([[0.0, 0.0, 1.0], [0.5, 0.0, 2.0]], np.float32)
+    center = np.zeros(3, np.float32)
+    want = jax.grad(lambda s: j_sh_to_rgb(jnp.asarray(means), s, jnp.asarray(center), 0).sum())(jnp.asarray(sh))
+    sh_t = torch.from_numpy(sh).requires_grad_(True)
+    colors = sh_to_rgb(torch.from_numpy(means), sh_t, torch.from_numpy(center), 0)
+    assert torch.equal(colors.detach(), torch.from_numpy(np.clip(rgb, 0, 1)))
+    (got,) = torch.autograd.grad(colors.sum(), [sh_t])
+    close(got, want)
+    np.testing.assert_array_equal(got[:, 0].numpy() / SH_C0, [[0.5, 0.5, 1.0], [0.0, 0.0, 0.5]])
+
+
 @pytest.mark.parametrize("angle", [0.0, 0.15, -0.7])
 def test_camera_matrices_and_arrays(angle):
     jcam = orbit_camera(angle, width=64, height=48)
