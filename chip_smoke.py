@@ -4,7 +4,7 @@
 Usage: ``python3 chip_smoke.py`` from the repository root, on a machine with
 one NVIDIA H100 (or another sm_90a card) and the CUDA toolkit. It builds the
 port's CUDA kernels from ``gsplat_tpu_torch/csrc`` (into ``build/kernels``),
-then runs ten phases, each printing one JSON line:
+then runs eleven phases, each printing one JSON line:
 
   1. device: the card's name and power limit, torch/CUDA versions, kernel
      build time, the compiler's register report and each kernel's
@@ -66,6 +66,29 @@ then runs ten phases, each printing one JSON line:
      ``finetune`` for 6 steps and as 3 steps resumed to 6 (the same PLY
      bytes), and ``train`` from the SfM points with a held-out view; each
      command's launches and seconds.
+ 11. mesh: the (data x tile) mesh path (``mesh_phase``). (a) A world of one
+     over NCCL in this process: the phase-3 model's sharded render and
+     batch render bitwise the phase-3 frames, the sharded binning stats
+     equal to ``binning_stats``, one sharded step (SSIM weight 0.2) held to
+     ``Trainer.train_step`` from the same state, the request and step ms,
+     their stages and device-busy ms.
+     (b) Four ranks spawned on this one card over gloo (``mesh_rank``), on
+     1x4, 2x2 and 4x1 meshes of one world: the 1x4 sharded render and the
+     2x2 batch render of four poses bitwise the single-device renders, a
+     200x150 frame at tile 16 on 1x4 (shard padding tiles alias the next
+     row or lie past the grid) bitwise, one SSIM-free step with one camera
+     repeated over the batch on each mesh against the 1x1 step, and the same
+     step with the pair reduction made exact (``exact_pair_reduction``) on
+     every mesh and on 1x1: with it, the means after the step at rtol 1e-4 /
+     atol 1e-7 of 1x1's on every element; with the f32 reduction, the loss,
+     and the means gradient no further from 1x1's exact-reduction gradient
+     than twice 1x1's own f32 gradient is. Then a
+     densifying 2x2 ``ParallelTrainer.fit`` from phase 9's cloud leaving the
+     replicas bitwise equal. Its times are four processes sharing one card
+     through the host, not multi-GPU times. (c) The command line with
+     ``--mesh 1x1 --device cuda`` on phase 10's scene: ``orbit`` frames and
+     ``evaluate``'s ``metrics.json`` equal to phase 10's, a 3-step
+     ``finetune`` PLY bitwise a 1x1 ``ParallelTrainer``'s.
 
 A kernel's bound counts the work its inputs need. ``bound_ms`` charges the
 gate (and its expf) only at the walked pair-pixels inside each pair's
@@ -84,7 +107,8 @@ through its own helpers and ``gsplat_tpu_torch/utils/video.py`` and does not
 invoke it.
 
 It then prints ``nvidia-smi``'s name/power-limit line, the ``kernels`` JSON
-line (each kernel's launches on the main path and in phases 9 and 10) and,
+line (each kernel's launches on the main path and in phases 9, 10 and 11,
+the last summed over every rank) and,
 last, ``{"ok": true, "device": {...}}``. Any failed check raises,
 so the script exits non-zero and prints no result; it also refuses to run
 without a CUDA device or without the ``gsplat_tpu_torch`` package beside it.
@@ -93,6 +117,7 @@ It imports neither JAX nor the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import math
@@ -158,6 +183,13 @@ DENSIFY = dict(every=4, start=4, grad_threshold=1e-5, prune_scale_extent=0.25, m
 CLI_POSES = DENSIFY_POSES + [("far_left", 0.1, 1.0)]
 CLI_SFM_POINTS = 100_000
 CLI_SLICE_PAIRS = 1 << 17
+# The mesh path (phase 11): the phase-3 poses and one more, a frame whose
+# 16-pixel tile grid (13x10) does not divide by the 1x4 mesh's 2x2 stride,
+# and a densifying 2x2 fit from phase 9's cloud, passing at step 4.
+MESH_POSES = [("bench", 0.0), ("yaw+0.05", 0.05), ("yaw-0.05", -0.05), ("yaw+0.1", 0.1)]
+MESH_PAD = (200, 150)
+MESH_FIT_STEPS = 6
+MESH_TIMEOUT_S = 600  # each collective's limit, and the gloo world's from spawn to join
 
 
 def emit(obj) -> None:
@@ -538,6 +570,27 @@ class LogLines(logging.Handler):
         self.lines.append(record.getMessage())
 
 
+def densify_inputs(cfg, dev):
+    """Phase 9's views and SfM cloud: the headline model seen from
+    ``DENSIFY_POSES`` as the targets, and ``SFM_POINTS`` points drawn from
+    its means, coloured by its DC band, as COLMAP's reader gives them (f64
+    positions, uint8 colours). Returns (views, xyzs, rgbs)."""
+    import torch
+
+    import gsplat_tpu_torch as gs
+    from gsplat_tpu_torch.ops.sh import SH_C0
+
+    cams = [bench_camera(WIDTH, HEIGHT, yaw, shift) for _, yaw, shift in DENSIFY_POSES]
+    with torch.inference_mode():
+        bench = build_scene(NUM_GAUSSIANS, 0.0, dev)
+        frames = [gs.render(bench, cam, cfg)[0] for cam in cams]
+        pick = torch.randperm(NUM_GAUSSIANS, generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+        pick = pick[:SFM_POINTS]
+        xyzs = bench.means[pick].double().cpu().numpy()
+        rgbs = ((bench.sh[pick, 0] * SH_C0 + 0.5).clamp(0.0, 1.0) * 255.0).round().to(torch.uint8).cpu().numpy()
+    return [(cam, img.clone()) for cam, img in zip(cams, frames)], xyzs, rgbs  # normal tensors: loss targets
+
+
 def densify_phase(cfg, dev, t_main: float):
     """Phase 9: train from an SfM cloud with densification, a loop
     checkpoint and a resume, then export and render depth, on ``dev``.
@@ -553,27 +606,14 @@ def densify_phase(cfg, dev, t_main: float):
     from gsplat_tpu_torch.kernels.raster_bwd import backward_tiles, backward_tiles_carry
     from gsplat_tpu_torch.kernels.raster_fwd import forward_tiles, forward_tiles_carry
     from gsplat_tpu_torch.models.gaussians import PARAM_NAMES
-    from gsplat_tpu_torch.ops.sh import SH_C0
     from gsplat_tpu_torch.train import checkpoint as CK
     from gsplat_tpu_torch.train import densify as D
     from gsplat_tpu_torch.utils.logging import get_logger
     from gsplat_tpu_torch.utils.stages import record_stages
 
     out = {"sfm_points": SFM_POINTS, "steps": DENSIFY_STEPS, "poses": DENSIFY_POSES, "config": DENSIFY}
-    cams = [bench_camera(WIDTH, HEIGHT, yaw, shift) for _, yaw, shift in DENSIFY_POSES]
-    # Targets: the headline model seen from the three poses. The SfM cloud:
-    # points drawn from its means, coloured by its DC band, as COLMAP's
-    # reader gives them (f64 positions, uint8 colours).
-    with torch.inference_mode():
-        bench = build_scene(NUM_GAUSSIANS, 0.0, dev)
-        frames = [gs.render(bench, cam, cfg)[0] for cam in cams]
-        pick = torch.randperm(NUM_GAUSSIANS, generator=torch.Generator(device=dev).manual_seed(1), device=dev)
-        pick = pick[:SFM_POINTS]
-        xyzs = bench.means[pick].double().cpu().numpy()
-        rgbs = ((bench.sh[pick, 0] * SH_C0 + 0.5).clamp(0.0, 1.0) * 255.0).round().to(torch.uint8).cpu().numpy()
-        del bench, pick
-    views = [(cam, img.clone()) for cam, img in zip(cams, frames)]  # normal tensors: loss targets
-    del frames
+    views, xyzs, rgbs = densify_inputs(cfg, dev)
+    cams = [cam for cam, _ in views]
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -790,9 +830,32 @@ def write_cli_scene(root: str, dev) -> dict:
     return out
 
 
-def cli_phase(dev, t_main: float):
+def cli_invoke(args) -> None:
+    """Run the port's command line in this process; raise on a failed exit."""
+    import traceback
+
+    from click.testing import CliRunner
+
+    from gsplat_tpu_torch import cli as C
+
+    result = CliRunner().invoke(C.cli, args)
+    if result.exit_code != 0:
+        tb = "".join(traceback.format_exception(*result.exc_info)) if result.exc_info else ""
+        raise RuntimeError(f"{' '.join(args[:1])} exited {result.exit_code}: {result.output[-4000:]}\n{tb}")
+
+
+def read_png(path):
+    import numpy as np
+    from PIL import Image
+
+    with Image.open(path) as im:
+        return np.asarray(im.convert("RGB"))
+
+
+def cli_phase(dev, t_main: float, root: str):
     """Phase 10: the command line (``gsplat_tpu_torch/cli.py``) on the
-    scene of :func:`write_cli_scene`, driven in this process through
+    scene of :func:`write_cli_scene`, written into ``root`` (phase 11 reads
+    it, its orbit frames and its ``evaluate`` metrics), driven in this process through
     ``click.testing.CliRunner`` so that the kernels' counts see every launch:
     ``evaluate`` unsliced and sliced, ``render``'s path with its progressive
     video, ``orbit``, ``finetune`` (and its resume) and ``train`` from the
@@ -802,13 +865,9 @@ def cli_phase(dev, t_main: float):
     import json
     import re
     import shutil
-    import tempfile
-    import traceback
 
     import numpy as np
     import torch
-    from click.testing import CliRunner
-    from PIL import Image
 
     import gsplat_tpu_torch as gs
     from gsplat_tpu_torch import cli as C
@@ -839,15 +898,7 @@ def cli_phase(dev, t_main: float):
             total[k] += n
         return launches
 
-    def invoke(args):
-        result = CliRunner().invoke(C.cli, args)
-        if result.exit_code != 0:
-            tb = "".join(traceback.format_exception(*result.exc_info)) if result.exc_info else ""
-            raise RuntimeError(f"{' '.join(args[:1])} exited {result.exit_code}: {result.output[-4000:]}\n{tb}")
-
-    def png(path):
-        with Image.open(path) as im:
-            return np.asarray(im.convert("RGB"))
+    invoke, png = cli_invoke, read_png
 
     def only(launches, **want):
         return launches == {k: want.get(k, 0) for k in kernels}
@@ -855,125 +906,496 @@ def cli_phase(dev, t_main: float):
     log = LogLines()
     logger = get_logger()
     logger.addHandler(log)
-    with tempfile.TemporaryDirectory() as root:
-        out["scene"] = write_cli_scene(root, dev)
-        n_views = len(CLI_POSES)
-        target0 = os.path.join(root, "images_1", f"{CLI_POSES[0][0]}.png")
-        common = ["--input_dir", root, "--trained_model_path", os.path.join(root, "model"), "--scale-factor", "1",
-                  "--scene-index", "0", "--device", dev.type]
+    out["scene"] = write_cli_scene(root, dev)
+    n_views = len(CLI_POSES)
+    target0 = os.path.join(root, "images_1", f"{CLI_POSES[0][0]}.png")
+    common = ["--input_dir", root, "--trained_model_path", os.path.join(root, "model"), "--scale-factor", "1",
+              "--scene-index", "0", "--device", dev.type]
 
-        # evaluate: each view's render timed by CUDA events around render_traced.
-        spans, real_render_traced = [], pipeline.render_traced
+    # evaluate: each view's render timed by CUDA events around render_traced.
+    spans, real_render_traced = [], pipeline.render_traced
 
-        def timed_render_traced(*args, **kwargs):
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            result = real_render_traced(*args, **kwargs)
-            end.record()
-            spans.append((start, end))
-            return result
+    def timed_render_traced(*args, **kwargs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        result = real_render_traced(*args, **kwargs)
+        end.record()
+        spans.append((start, end))
+        return result
 
-        pipeline.render_traced = timed_render_traced
-        try:
-            launches = counted("evaluate", lambda: invoke(["evaluate", *common, "--output_path", f"{root}/eval"]))
-        finally:
-            pipeline.render_traced = real_render_traced
-        metrics = json.load(open(f"{root}/eval/metrics.json"))
-        out["evaluate"] = {"render_ms_per_view": [a.elapsed_time(b) for a, b in spans], "metrics": metrics}
-        check(only(launches, raster_fwd=n_views), f"evaluate: one forward launch per view: {launches}")
-        check(len(metrics["views"]) == n_views and metrics["mean_psnr"] > 50.0, f"evaluate PSNR: {metrics}")
-        check(all(v["ssim"] > 0.99 for v in metrics["views"]), f"evaluate SSIM: {metrics}")
+    pipeline.render_traced = timed_render_traced
+    try:
+        launches = counted("evaluate", lambda: invoke(["evaluate", *common, "--output_path", f"{root}/eval"]))
+    finally:
+        pipeline.render_traced = real_render_traced
+    metrics = json.load(open(f"{root}/eval/metrics.json"))
+    out["evaluate"] = {"render_ms_per_view": [a.elapsed_time(b) for a, b in spans], "metrics": metrics}
+    check(only(launches, raster_fwd=n_views), f"evaluate: one forward launch per view: {launches}")
+    check(len(metrics["views"]) == n_views and metrics["mean_psnr"] > 50.0, f"evaluate PSNR: {metrics}")
+    check(all(v["ssim"] > 0.99 for v in metrics["views"]), f"evaluate SSIM: {metrics}")
 
-        launches = counted("evaluate_sliced", lambda: invoke(
-            ["evaluate", *common, "--slice-pairs", str(CLI_SLICE_PAIRS), "--output_path", f"{root}/eval_sliced"]))
-        check(launches["raster_fwd_carry"] >= n_views and only(launches, raster_fwd_carry=launches["raster_fwd_carry"]),
-              f"sliced evaluate: forward carry launches only: {launches}")
-        check(json.load(open(f"{root}/eval_sliced/metrics.json")) == metrics,
-              "the sliced evaluate's metrics.json equals the unsliced one")
+    launches = counted("evaluate_sliced", lambda: invoke(
+        ["evaluate", *common, "--slice-pairs", str(CLI_SLICE_PAIRS), "--output_path", f"{root}/eval_sliced"]))
+    check(launches["raster_fwd_carry"] >= n_views and only(launches, raster_fwd_carry=launches["raster_fwd_carry"]),
+          f"sliced evaluate: forward carry launches only: {launches}")
+    check(json.load(open(f"{root}/eval_sliced/metrics.json")) == metrics,
+          "the sliced evaluate's metrics.json equals the unsliced one")
 
-        # render's path without its matplotlib figure (the card's machine has
-        # no matplotlib, PERF.md §3): the view, render.png and the
-        # progressive video, through the command's own helpers.
-        render_dir = os.path.join(root, "render")
-        parts = {}
+    # render's path without its matplotlib figure (the card's machine has
+    # no matplotlib, PERF.md §3): the view, render.png and the
+    # progressive video, through the command's own helpers.
+    render_dir = os.path.join(root, "render")
+    parts = {}
 
-        def render_path():
-            t0 = time.perf_counter()
-            cfg = C._raster_config(32, 32, 1 << 22, 0.0, dev.type)
-            model, camera, _, gt_path = C._load_scene(root, os.path.join(root, "model"), 0, 1, dev)
-            with torch.inference_mode():
-                cfg = C._check_pairs(model, camera, cfg, True)
-                image = gs.render(model, camera, cfg)[0].cpu().numpy()
-            os.makedirs(render_dir)
-            video.save_frame(os.path.join(render_dir, "render.png"), image)
-            parts["render_s"] = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            frames = video.progressive_frames(model, camera, cfg, num_frames=40)
-            torch.cuda.synchronize()
-            parts["progressive_frames_s"] = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            video.write_frames(render_dir, frames)
-            parts["write_frames_s"] = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            parts["video"] = os.path.basename(video.encode_video(render_dir, camera.width, camera.height))
-            parts["encode_s"] = time.perf_counter() - t0
-            parts["frames"] = len(frames)
-            parts["last_frame_max_abs_diff"] = float(np.abs(frames[-1] - image).max())
+    def render_path():
+        t0 = time.perf_counter()
+        cfg = C._raster_config(32, 32, 1 << 22, 0.0, dev.type)
+        model, camera, _, gt_path = C._load_scene(root, os.path.join(root, "model"), 0, 1, dev)
+        with torch.inference_mode():
+            cfg = C._check_pairs(model, camera, cfg, True)
+            image = gs.render(model, camera, cfg)[0].cpu().numpy()
+        os.makedirs(render_dir)
+        video.save_frame(os.path.join(render_dir, "render.png"), image)
+        parts["render_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        frames = video.progressive_frames(model, camera, cfg, num_frames=40)
+        torch.cuda.synchronize()
+        parts["progressive_frames_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        video.write_frames(render_dir, frames)
+        parts["write_frames_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        parts["video"] = os.path.basename(video.encode_video(render_dir, camera.width, camera.height))
+        parts["encode_s"] = time.perf_counter() - t0
+        parts["frames"] = len(frames)
+        parts["last_frame_max_abs_diff"] = float(np.abs(frames[-1] - image).max())
 
-        launches = counted("render", render_path)
-        out["render"] = parts
-        check(only(launches, raster_fwd=1 + parts["frames"]) and parts["frames"] == 40,
-              f"render: one forward launch for the view and one per progressive frame: {launches}")
-        check(np.array_equal(png(os.path.join(render_dir, "render.png")), png(target0)),
-              "render.png equals the view's target PNG")
-        check(parts["last_frame_max_abs_diff"] <= 1e-5, f"last progressive frame vs the render: {parts}")
-        shutil.rmtree(render_dir)
+    launches = counted("render", render_path)
+    out["render"] = parts
+    check(only(launches, raster_fwd=1 + parts["frames"]) and parts["frames"] == 40,
+          f"render: one forward launch for the view and one per progressive frame: {launches}")
+    check(np.array_equal(png(os.path.join(render_dir, "render.png")), png(target0)),
+          "render.png equals the view's target PNG")
+    check(parts["last_frame_max_abs_diff"] <= 1e-5, f"last progressive frame vs the render: {parts}")
+    shutil.rmtree(render_dir)
 
-        orbit_dir = os.path.join(root, "orbit")
-        launches = counted("orbit", lambda: invoke(["orbit", *common, "--num-frames", "8", "--output_path", orbit_dir]))
-        check(only(launches, raster_fwd=8), f"orbit: one forward launch per frame: {launches}")
-        check(np.array_equal(png(os.path.join(orbit_dir, "images", "image_iter_0000000.png")), png(target0)),
-              "orbit frame 0 (yaw 0) equals the bench view's target PNG")
-        out["orbit"] = {"video": [f for f in os.listdir(orbit_dir) if f.startswith("video_render")]}
-        shutil.rmtree(orbit_dir)
+    orbit_dir = os.path.join(root, "orbit")
+    launches = counted("orbit", lambda: invoke(["orbit", *common, "--num-frames", "8", "--output_path", orbit_dir]))
+    check(only(launches, raster_fwd=8), f"orbit: one forward launch per frame: {launches}")
+    check(np.array_equal(png(os.path.join(orbit_dir, "images", "image_iter_0000000.png")), png(target0)),
+          "orbit frame 0 (yaw 0) equals the bench view's target PNG")
+    out["orbit"] = {"video": [f for f in os.listdir(orbit_dir) if f.startswith("video_render")]}
 
-        # finetune, uninterrupted and as 3 steps then a resume to 6.
-        ft = ["finetune", *common, "--no-densify"]
-        whole, split = os.path.join(root, "ft_whole"), os.path.join(root, "ft_split")
-        log.lines.clear()
-        launches = counted("finetune", lambda: invoke([*ft, "--steps", "6", "--checkpoint-every", "3",
-                                                       "--output_path", whole]))
-        losses = [float(m.group(1)) for m in map(re.compile(r"step=\d+ loss=(\S+)").match, log.lines) if m]
-        out["finetune"] = {"logged_losses": losses}
-        check(only(launches, raster_fwd=6, raster_bwd=6), f"finetune: a forward and a backward per step: {launches}")
-        check(len(losses) == 2 and all(math.isfinite(x) for x in losses), f"finetune losses: {log.lines}")
-        counted("finetune_3", lambda: invoke([*ft, "--steps", "3", "--output_path", split]))
-        launches = counted("finetune_resume", lambda: invoke([*ft, "--steps", "6", "--resume", "--output_path", split]))
-        check(only(launches, raster_fwd=3, raster_bwd=3), f"the resumed finetune runs steps 3-5: {launches}")
-        plys = [open(checkpoint_ply_path(d, 30001), "rb").read() for d in (whole, split)]
-        check(plys[0] == plys[1], "the resumed finetune's PLY equals the uninterrupted run's bitwise")
-        out["finetune"]["ply_bytes"] = len(plys[0])
-        del plys
-        shutil.rmtree(whole)
-        shutil.rmtree(split)
+    # finetune, uninterrupted and as 3 steps then a resume to 6.
+    ft = ["finetune", *common, "--no-densify"]
+    whole, split = os.path.join(root, "ft_whole"), os.path.join(root, "ft_split")
+    log.lines.clear()
+    launches = counted("finetune", lambda: invoke([*ft, "--steps", "6", "--checkpoint-every", "3",
+                                                   "--output_path", whole]))
+    losses = [float(m.group(1)) for m in map(re.compile(r"step=\d+ loss=(\S+)").match, log.lines) if m]
+    out["finetune"] = {"logged_losses": losses}
+    check(only(launches, raster_fwd=6, raster_bwd=6), f"finetune: a forward and a backward per step: {launches}")
+    check(len(losses) == 2 and all(math.isfinite(x) for x in losses), f"finetune losses: {log.lines}")
+    counted("finetune_3", lambda: invoke([*ft, "--steps", "3", "--output_path", split]))
+    launches = counted("finetune_resume", lambda: invoke([*ft, "--steps", "6", "--resume", "--output_path", split]))
+    check(only(launches, raster_fwd=3, raster_bwd=3), f"the resumed finetune runs steps 3-5: {launches}")
+    plys = [open(checkpoint_ply_path(d, 30001), "rb").read() for d in (whole, split)]
+    check(plys[0] == plys[1], "the resumed finetune's PLY equals the uninterrupted run's bitwise")
+    out["finetune"]["ply_bytes"] = len(plys[0])
+    del plys
+    shutil.rmtree(whole)
+    shutil.rmtree(split)
 
-        # train from the SfM points, holding out view 0.
-        train_dir = os.path.join(root, "train")
-        log.lines.clear()
-        launches = counted("train", lambda: invoke(
-            ["train", "--input_dir", root, "--scale-factor", "1", "--device", dev.type, "--steps", "4",
-             "--no-densify", "--test-every", "4", "--output_path", train_dir]))
-        held = [m.groups() for m in map(re.compile(r"held-out \((\d+) views\): PSNR (\S+)  SSIM (\S+)").match,
-                                        log.lines) if m]
-        check(len(held) == 1 and held[0][0] == "1" and math.isfinite(float(held[0][1])), f"held-out: {log.lines}")
-        out["train"] = {"held_out_psnr": float(held[0][1]), "held_out_ssim": float(held[0][2]),
-                        "logged_losses": [float(m.group(1)) for m in
-                                          map(re.compile(r"step=\d+ loss=(\S+)").match, log.lines) if m]}
-        check(only(launches, raster_fwd=4 + 1, raster_bwd=4),
-              f"train: a forward and a backward per step, a forward for the held-out view: {launches}")
-        check(os.path.isfile(checkpoint_ply_path(train_dir, 30000)), "train exported its PLY")
+    # train from the SfM points, holding out view 0.
+    train_dir = os.path.join(root, "train")
+    log.lines.clear()
+    launches = counted("train", lambda: invoke(
+        ["train", "--input_dir", root, "--scale-factor", "1", "--device", dev.type, "--steps", "4",
+         "--no-densify", "--test-every", "4", "--output_path", train_dir]))
+    held = [m.groups() for m in map(re.compile(r"held-out \((\d+) views\): PSNR (\S+)  SSIM (\S+)").match,
+                                    log.lines) if m]
+    check(len(held) == 1 and held[0][0] == "1" and math.isfinite(float(held[0][1])), f"held-out: {log.lines}")
+    out["train"] = {"held_out_psnr": float(held[0][1]), "held_out_ssim": float(held[0][2]),
+                    "logged_losses": [float(m.group(1)) for m in
+                                      map(re.compile(r"step=\d+ loss=(\S+)").match, log.lines) if m]}
+    check(only(launches, raster_fwd=4 + 1, raster_bwd=4),
+          f"train: a forward and a backward per step, a forward for the held-out view: {launches}")
+    check(os.path.isfile(checkpoint_ply_path(train_dir, 30000)), "train exported its PLY")
     logger.removeHandler(log)
     out["launches"] = total
+    out["elapsed_s"] = time.perf_counter() - t_main  # since main() began, the build included
+    return out, total
+
+
+@contextlib.contextmanager
+def exact_pair_reduction():
+    """The backward's pair-to-gaussian reduction (``reduce_pair_grads`` in
+    ``kernels/raster_bwd.py``: an f32 cumsum over every pair in gaussian
+    order, differenced at the segment ends) taken in f64 and rounded to f32
+    once, so that each gaussian's feature gradient is the exact sum of its
+    pairs' rows, whatever pairs lie around it. The f32 reduction's error in
+    a gaussian's sum is set by the cumsum's magnitude at its segment, which
+    depends on the other pairs that share the cumsum: a tile shard reduces
+    its own pairs, the single device all of them. Phase 11 takes both
+    reductions to show that this is where the mesh's gradient parts from
+    the single device's. The kernels run as always."""
+    from gsplat_tpu_torch.kernels import raster, raster_bwd
+
+    f32 = raster_bwd.reduce_pair_grads
+
+    def f64(pair_grads, *args):
+        return f32(pair_grads.double(), *args).float()
+
+    raster.reduce_pair_grads = raster_bwd.reduce_pair_grads = f64
+    try:
+        yield
+    finally:
+        raster.reduce_pair_grads = raster_bwd.reduce_pair_grads = f32
+
+
+def _reduction(exact: bool):
+    return exact_pair_reduction() if exact else contextlib.nullcontext()
+
+
+def _digest(model) -> str:
+    """A hash of every parameter's bytes (replicas must agree bitwise)."""
+    import hashlib
+
+    from gsplat_tpu_torch.models.gaussians import PARAM_NAMES
+
+    h = hashlib.sha256()
+    for k in PARAM_NAMES:
+        h.update(getattr(model, k).detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _clone(model):
+    import gsplat_tpu_torch as gs
+    from gsplat_tpu_torch.models.gaussians import PARAM_NAMES
+
+    return gs.GaussianModel(*(getattr(model, k).detach().clone() for k in PARAM_NAMES))
+
+
+def mesh_rank(rank: int, world: int, tmp: str, cfg_fields: dict, dense_capacity: int, device: str) -> None:
+    """One of phase 11's gloo ranks, all on this card: the headline renders
+    and steps on the 1x4, 2x2 and 4x1 meshes, the padded frame on 1x4 and a
+    densifying 2x2 ``ParallelTrainer.fit``. Writes ``rank<r>.json`` (and, on
+    rank 0, each step's means and their gradient) into ``tmp``."""
+    import dataclasses
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    import gsplat_tpu_torch as gs
+    from gsplat_tpu_torch import parallel as P
+    from gsplat_tpu_torch.kernels.raster_bwd import backward_tiles
+    from gsplat_tpu_torch.kernels.raster_fwd import forward_tiles
+    from gsplat_tpu_torch.utils.logging import get_logger
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = P.initialize_distributed(backend="gloo", device=device, init_method=f"file://{tmp}/store", rank=rank,
+                                   world_size=world, timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    out = {"rank": rank, "launches": {}, "s": {}}
+
+    def counted(name, fn):
+        forward_tiles.launches = backward_tiles.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        out["s"][name] = time.perf_counter() - t0
+        out["launches"][name] = {"raster_fwd": forward_tiles.launches, "raster_bwd": backward_tiles.launches}
+        return result
+
+    try:
+        meshes = {f"{d}x{t}": P.make_mesh(gs.MeshConfig(d, t)) for d, t in ((1, 4), (2, 2), (4, 1))}
+        cfg = gs.RasterConfig(**cfg_fields)
+        model = build_scene(NUM_GAUSSIANS, 0.0, dev)
+        cams = [gs.CameraArrays.from_params(bench_camera(WIDTH, HEIGHT, yaw), device=dev) for _, yaw in MESH_POSES]
+        with torch.inference_mode():
+            single = [gs.render(model, bench_camera(WIDTH, HEIGHT, yaw), cfg) for _, yaw in MESH_POSES]
+            got = counted("render_1x4", lambda: P.make_sharded_render(meshes["1x4"], WIDTH, HEIGHT, cfg)(model, cams[0]))
+            out["render_1x4_bitwise"] = all(torch.equal(a, b) for a, b in zip(got, single[0]))
+            imgs, trans = counted("batch_2x2", lambda: P.make_batch_render(meshes["2x2"], WIDTH, HEIGHT, cfg)(
+                model, gs.CameraArrays.stack(cams)))
+            out["batch_2x2_bitwise"] = all(torch.equal(imgs[i], a) and torch.equal(trans[i], b)
+                                           for i, (a, b) in enumerate(single))
+            # A frame whose tile grid does not divide by the stride: shard
+            # padding tiles alias the next row or lie past the grid.
+            small = build_scene(20_000, 2.5, dev)
+            pad_cfg = gs.RasterConfig(tile_size=16, chunk_size=32, pair_block=128, max_pairs=1 << 19)
+            pad_cam = bench_camera(*MESH_PAD)
+            pad_single = gs.render(small, pad_cam, pad_cfg)
+            stats = gs.binning_stats(small, gs.CameraArrays.from_params(pad_cam, device=dev), *MESH_PAD, pad_cfg)
+            out["pad_pair_demand"] = int(stats["pair_demand"])
+            got = counted("pad_1x4", lambda: P.make_sharded_render(meshes["1x4"], *MESH_PAD, pad_cfg)(
+                small, gs.CameraArrays.from_params(pad_cam, device=dev)))
+            out["pad_bitwise"] = all(torch.equal(a, b) for a, b in zip(got, pad_single))
+            del single, imgs, trans, small, pad_single, got
+        # One step with one camera repeated over the batch, every mesh shape,
+        # with the f32 pair reduction and with the exact one.
+        target = torch.full((HEIGHT, WIDTH, 3), 0.25, device=dev)
+        for name, mesh in meshes.items():
+            batch = mesh.shape[P.DATA_AXIS]
+            step, init_state, prepare = P.make_parallel_train_step(mesh, WIDTH, HEIGHT, cfg,
+                                                                   gs.TrainConfig(ssim_weight=0.0))
+            targets = prepare(target.expand(batch, -1, -1, -1))
+            for key, exact in ((name, False), (f"{name}_exact", True)):
+                m = _clone(model)
+                optimizer = init_state(m)
+                with _reduction(exact):
+                    metrics = counted(f"step_{key}", lambda: step(
+                        m, optimizer, gs.CameraArrays.stack([cams[0]] * batch), targets)[2])
+                out[f"step_{key}"] = {"loss": float(metrics["loss"]), "digest": _digest(m)}
+                if rank == 0:  # the means after the step and their gradient, summed over the world
+                    torch.save((m.means.detach().cpu(), m.means.grad.cpu()), os.path.join(tmp, f"means_{key}.pt"))
+                del m, optimizer
+            del targets
+        del model
+        torch.cuda.empty_cache()
+        # A densifying fit from phase 9's cloud on 2x2. Rank 0 alone builds
+        # the cloud's model; the fit broadcasts it to the other replicas.
+        views, xyzs, rgbs = densify_inputs(cfg, dev)
+        if rank == 0:
+            init = gs.GaussianModel.from_points3d(xyzs, rgbs, device=dev)
+        else:
+            n = len(xyzs)
+            init = gs.GaussianModel(*(torch.zeros(shape, device=dev) for shape in
+                                      ((n, 3), (n, 3), (n, 4), (n,), (n, 16, 3))))
+        log = LogLines()
+        get_logger().addHandler(log)
+        trainer = P.ParallelTrainer(
+            mesh=meshes["2x2"], raster=dataclasses.replace(cfg, max_pairs=dense_capacity), show_progress=False,
+            train=gs.TrainConfig(ssim_weight=0.2, steps=MESH_FIT_STEPS, log_every=1,
+                                 densify=gs.DensifyConfig(**DENSIFY)))
+        final, history = counted("fit_2x2", lambda: trainer.fit(init, views))
+        out["fit_2x2"] = {"digest": _digest(final), "num_gaussians": final.num_gaussians,
+                          "losses": [h["loss"] for h in history], "max_pairs": trainer.raster.max_pairs,
+                          "log": [ln for ln in log.lines if ln.startswith("densify @")]}
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def mesh_phase(cfg, frames, dense_capacity: int, dev, t_main: float, cli_root: str):
+    """Phase 11: the mesh path (``gsplat_tpu_torch/parallel``). (a) A world
+    of one over NCCL in this process, on the phase-3 model and poses: the
+    sharded and batch renders bitwise the phase-3 ``frames``, the sharded
+    binning stats, and a step held to ``Trainer.train_step``. (b) Four gloo
+    ranks spawned on this one card (:func:`mesh_rank`). (c) The command line
+    with ``--mesh 1x1 --device cuda`` on phase 10's scene in ``cli_root``.
+    Returns (the phase's record, the launches of each kernel over the phase,
+    summed over every rank)."""
+    import dataclasses
+    import datetime
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import gsplat_tpu_torch as gs
+    from gsplat_tpu_torch import cli as C
+    from gsplat_tpu_torch import parallel as P
+    from gsplat_tpu_torch.io.scene import checkpoint_ply_path
+    from gsplat_tpu_torch.kernels.raster_bwd import backward_tiles
+    from gsplat_tpu_torch.kernels.raster_fwd import forward_tiles
+    from gsplat_tpu_torch.models.gaussians import PARAM_NAMES
+    from gsplat_tpu_torch.train.checkpoint import save_ply_checkpoint
+
+    out = {"poses": MESH_POSES, "launches": {}}
+    total = {"raster_fwd": 0, "raster_bwd": 0}
+
+    def counted(name, fn):
+        forward_tiles.launches = backward_tiles.launches = 0
+        result = fn()
+        torch.cuda.synchronize()
+        launches = {"raster_fwd": forward_tiles.launches, "raster_bwd": backward_tiles.launches}
+        out["launches"][name] = launches
+        for k, n in launches.items():
+            total[k] += n
+        return result, launches
+
+    # -- (a) a world of one over NCCL --
+    model = build_scene(NUM_GAUSSIANS, 0.0, dev)
+    cams = [gs.CameraArrays.from_params(bench_camera(WIDTH, HEIGHT, yaw), device=dev) for _, yaw in MESH_POSES]
+    target = torch.full((HEIGHT, WIDTH, 3), 0.25, device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        P.initialize_distributed(device=dev.type, init_method=f"file://{tmp}/store", rank=0, world_size=1,
+                                 timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+        try:
+            mesh = P.make_mesh(gs.MeshConfig(1, 1))
+            sharded = P.make_sharded_render(mesh, WIDTH, HEIGHT, cfg)
+            with torch.inference_mode():
+                got, launches = counted("a_render", lambda: sharded(model, cams[0]))
+                check(torch.equal(got[0], frames[0][0]) and torch.equal(got[1], frames[0][1]),
+                      "the 1x1 sharded render is bitwise the phase-3 render")
+                check(launches == {"raster_fwd": 1, "raster_bwd": 0}, f"1x1 render launches: {launches}")
+                (imgs, trans), launches = counted("a_batch", lambda: P.make_batch_render(mesh, WIDTH, HEIGHT, cfg)(
+                    model, gs.CameraArrays.stack(cams[:3])))
+                check(all(torch.equal(imgs[i], a) and torch.equal(trans[i], b) for i, (a, b) in enumerate(frames)),
+                      "the 1x1 batch render is bitwise the three phase-3 renders")
+                check(launches == {"raster_fwd": 3, "raster_bwd": 0}, f"1x1 batch launches: {launches}")
+                stats = P.make_sharded_binning_stats(mesh, WIDTH, HEIGHT, cfg)(model, cams[0])
+                demand = int(gs.binning_stats(model, cams[0], WIDTH, HEIGHT, cfg)["pair_demand"])
+                check(int(stats["max_shard_demand"]) == demand, f"1x1 shard demand {stats} != {demand}")
+                out["a_request_ms"] = [cuda_ms(lambda: sharded(model, cam), 1) for cam in cams[:3]]
+                out["a_request_stage_ms"] = stage_breakdown(lambda: sharded(model, cams[0]))
+                out["a_request_device_busy_ms"] = device_busy_ms(lambda: sharded(model, cams[0]))
+                del got, imgs, trans
+            # The step from the same state as Trainer.train_step's.
+            tc = gs.TrainConfig(ssim_weight=0.2)
+            ref, m = _clone(model), _clone(model)
+            trainer = gs.Trainer(raster=cfg, train=tc, show_progress=False)
+            ref_metrics = trainer.train_step(ref, trainer.init_state(ref), bench_camera(WIDTH, HEIGHT), target)
+            step, init_state, prepare = P.make_parallel_train_step(mesh, WIDTH, HEIGHT, cfg, tc)
+            optimizer, targets, batch = init_state(m), prepare(target[None]), gs.CameraArrays.stack(cams[:1])
+            (_, _, metrics), launches = counted("a_step", lambda: step(m, optimizer, batch, targets))
+            check(launches == {"raster_fwd": 1, "raster_bwd": 1}, f"1x1 step launches: {launches}")
+            check(math.isclose(float(metrics["loss"]), float(ref_metrics["loss"]), rel_tol=1e-5),
+                  f"1x1 step loss {float(metrics['loss'])} vs Trainer {float(ref_metrics['loss'])}")
+            out["a_step_param_err"] = {}
+            for k in PARAM_NAMES:
+                a, b = getattr(m, k).detach(), getattr(ref, k).detach()
+                scale = float(b.abs().max())
+                check(bool(((a - b).abs() <= 1e-4 * b.abs() + 1e-5 * scale).all()), f"1x1 step {k} vs Trainer")
+                out["a_step_param_err"][k] = float((a - b).abs().max()) / scale
+            out["a_step_ms"] = cuda_ms(lambda: step(m, optimizer, batch, targets), 5)
+            out["a_step_stage_ms"] = stage_breakdown(lambda: step(m, optimizer, batch, targets))
+            out["a_step_device_busy_ms"] = device_busy_ms(lambda: step(m, optimizer, batch, targets))
+            # The SSIM-free step the gloo meshes are held to, with the f32
+            # pair reduction and with the exact one.
+            step0, init0, _ = P.make_parallel_train_step(mesh, WIDTH, HEIGHT, cfg, gs.TrainConfig(ssim_weight=0.0))
+            one = {}
+            for exact in (False, True):
+                m0 = _clone(model)
+                with _reduction(exact):
+                    loss = float(step0(m0, init0(m0), batch, targets)[2]["loss"])
+                one[exact] = (loss, m0.means.detach().cpu(), m0.means.grad.cpu())
+                del m0
+            del ref, m, trainer, optimizer, targets
+        finally:
+            dist.destroy_process_group()
+    del model
+    torch.cuda.empty_cache()
+
+    # -- (b) four gloo ranks sharing this card; the kernels were built in phase 1 --
+    cfg_fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ctx = torch.multiprocessing.start_processes(mesh_rank, args=(4, tmp, cfg_fields, dense_capacity, dev.type), nprocs=4,
+                                                    join=False, start_method="spawn")
+        try:
+            while not ctx.join(timeout=5.0):
+                check(time.perf_counter() - t0 < MESH_TIMEOUT_S, f"the gloo world ran past {MESH_TIMEOUT_S} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                p.join(30)
+        out["b_world_s"] = time.perf_counter() - t0
+        ranks = []
+        for r in range(4):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        means = {key: torch.load(os.path.join(tmp, f"means_{key}.pt"))
+                 for name in ("1x4", "2x2", "4x1") for key in (name, f"{name}_exact")}
+    print(json.dumps({"mesh_ranks": ranks}), file=sys.stderr, flush=True)  # the raw record, before any check
+    for rank in ranks:
+        r = rank["rank"]
+        check(rank["render_1x4_bitwise"], f"rank {r}: the 1x4 sharded render is bitwise the single-device one")
+        check(rank["batch_2x2_bitwise"], f"rank {r}: the 2x2 batch render is bitwise the four renders")
+        check(rank["pad_bitwise"], f"rank {r}: the padded 200x150 frame is bitwise the single-device one")
+        for name, launches in rank["launches"].items():
+            want_bwd = name.startswith("step") or name.startswith("fit")
+            check(launches["raster_fwd"] > 0 and (launches["raster_bwd"] > 0) == want_bwd,
+                  f"rank {r} {name} launches: {launches}")
+            for k, n in launches.items():
+                total[k] += n
+    # Adam's first update is lr * g / (|g| + eps), steep in g where |g| is
+    # near eps, so the means after one step are as close as the gradients
+    # are in the last bits. With the exact pair reduction the gradients of
+    # every mesh and of 1x1 are the same sums, and the means are held at
+    # rtol 1e-4 / atol 1e-7 on every element. With the f32 reduction each
+    # path's gradient carries its own cumsum's rounding; the mesh's is held
+    # to twice 1x1's own distance from the exact-reduction gradient.
+    one_loss, one_means, one_grad = one[False]
+    _, x_means, x_grad = one[True]
+    grad_scale = float(x_grad.abs().max())
+    one_err = float((one_grad - x_grad).abs().max())
+    out["b_steps"] = {"grad_scale": grad_scale, "1x1_f32_grad_err_over_scale": one_err / grad_scale}
+    for name in ("1x4", "2x2", "4x1"):
+        m, g = means[name]
+        mx, gx = means[f"{name}_exact"]
+        out["b_steps"][name] = {
+            "loss": ranks[0][f"step_{name}"]["loss"],
+            "f32_grad_err_over_scale": float((g - x_grad).abs().max()) / grad_scale,
+            "f32_grad_vs_1x1_f32_over_scale": float((g - one_grad).abs().max()) / grad_scale,
+            "f32_means_max_abs_err": float((m - one_means).abs().max()),
+            "f32_means_outside_rtol_1e-4_atol_1e-7": int(((m - one_means).abs() > 1e-4 * one_means.abs() + 1e-7).sum()),
+            "exact_grad_err_over_scale": float((gx - x_grad).abs().max()) / grad_scale,
+            "exact_grad_max_rel_err": float(((gx - x_grad).abs() / x_grad.abs().clamp(min=1e-30)).max()),
+            "exact_means_max_abs_err": float((mx - x_means).abs().max()),
+        }
+    print(json.dumps({"mesh_steps": out["b_steps"]}), file=sys.stderr, flush=True)
+    check(0.0 < one_err, "the exact pair reduction changes 1x1's gradient")
+    for name in ("1x4", "2x2", "4x1"):
+        for key in (name, f"{name}_exact"):
+            check(len({rank[f"step_{key}"]["digest"] for rank in ranks}) == 1, f"{key} step replicas bitwise equal")
+            loss = ranks[0][f"step_{key}"]["loss"]
+            check(math.isclose(loss, one_loss, rel_tol=1e-5), f"{key} step loss {loss} vs 1x1 {one_loss}")
+        m, g = means[name]
+        mx, _ = means[f"{name}_exact"]
+        check(torch.allclose(mx, x_means, rtol=1e-4, atol=1e-7), f"{name} step means vs 1x1, exact pair reduction")
+        check(float((g - x_grad).abs().max()) <= 2 * one_err,
+              f"{name} step means gradient within twice 1x1's f32 error of the exact-reduction gradient")
+    fit = [rank["fit_2x2"] for rank in ranks]
+    check(len({f["digest"] for f in fit}) == 1, "the densifying 2x2 fit leaves the four replicas bitwise equal")
+    check(len(fit[0]["losses"]) == MESH_FIT_STEPS and all(math.isfinite(x) for x in fit[0]["losses"]),
+          f"2x2 fit losses: {fit[0]['losses']}")
+    check(len(fit[0]["log"]) >= 1 and all(not f["log"] for f in fit[1:]), f"rank 0 alone logs the passes: {fit}")
+    out["b"] = {"note": "four processes share one card over gloo, staged through the host: not a multi-GPU time",
+                "ranks": ranks, "step_loss_1x1": one_loss}
+
+    # -- (c) the command line, --mesh 1x1 --device cuda, on phase 10's scene --
+    common = ["--input_dir", cli_root, "--trained_model_path", os.path.join(cli_root, "model"), "--scale-factor", "1",
+              "--scene-index", "0", "--device", dev.type, "--mesh", "1x1"]
+    orbit_dir = os.path.join(cli_root, "orbit_mesh")
+    _, launches = counted("c_orbit", lambda: cli_invoke(["orbit", *common, "--num-frames", "8",
+                                                         "--output_path", orbit_dir]))
+    check(launches == {"raster_fwd": 8, "raster_bwd": 0}, f"orbit --mesh 1x1 launches: {launches}")
+    names = sorted(os.listdir(os.path.join(cli_root, "orbit", "images")))
+    check(names == sorted(os.listdir(os.path.join(orbit_dir, "images"))), "orbit --mesh 1x1 writes phase 10's frames")
+    check(all(np.array_equal(read_png(os.path.join(orbit_dir, "images", n)),
+                             read_png(os.path.join(cli_root, "orbit", "images", n))) for n in names),
+          "orbit --mesh 1x1 frames equal phase 10's")
+    _, launches = counted("c_evaluate", lambda: cli_invoke(["evaluate", *common, "--output_path",
+                                                            os.path.join(cli_root, "eval_mesh")]))
+    check(launches["raster_fwd"] == len(CLI_POSES) and launches["raster_bwd"] == 0, f"evaluate --mesh: {launches}")
+    with open(os.path.join(cli_root, "eval_mesh", "metrics.json")) as f, \
+            open(os.path.join(cli_root, "eval", "metrics.json")) as g:
+        check(json.load(f) == json.load(g), "evaluate --mesh 1x1 metrics.json equals phase 10's")
+    ft_dir = os.path.join(cli_root, "ft_mesh")
+    _, launches = counted("c_finetune", lambda: cli_invoke(["finetune", *common, "--steps", "3", "--no-densify",
+                                                            "--output_path", ft_dir]))
+    check(launches == {"raster_fwd": 3, "raster_bwd": 3}, f"finetune --mesh 1x1 launches: {launches}")
+    # The same run through a 1x1 ParallelTrainer in this process.
+    P.initialize_distributed(device=dev.type)
+    try:
+        ft_cfg = C._raster_config(32, 32, 1 << 22, 0.0, dev.type)
+        ft_model = C._load_scene(cli_root, os.path.join(cli_root, "model"), 0, 1, dev)[0]
+        ft_trainer = P.ParallelTrainer(mesh=P.single_device_mesh(), raster=ft_cfg, show_progress=False,
+                                       train=gs.TrainConfig(steps=3))
+        ft_model, _ = ft_trainer.fit(ft_model, C._load_views(cli_root, 1, dev))
+        save_ply_checkpoint(os.path.join(cli_root, "ft_ref"), ft_model, iteration=30001)
+    finally:
+        dist.destroy_process_group()
+    plys = [open(checkpoint_ply_path(d, 30001), "rb").read() for d in (ft_dir, os.path.join(cli_root, "ft_ref"))]
+    check(plys[0] == plys[1], "finetune --mesh 1x1's PLY is bitwise a 1x1 ParallelTrainer's")
+    out["mesh_launches"] = total
     out["elapsed_s"] = time.perf_counter() - t_main  # since main() began, the build included
     return out, total
 
@@ -992,6 +1414,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     import dataclasses
+    import tempfile
 
     import gsplat_tpu_torch as gs
     from gsplat_tpu_torch.kernels import build
@@ -1109,6 +1532,7 @@ def main() -> int:
         "requests": requests, "kernel_launches": launches, "pixels": n_pix,
         "within_1e-4": within_1e4, "within_5e-3": within_5e3, "max_abs_err": frame_err,
     })
+    served_frames = frames  # phase 11's reference
 
     # -- phase 4: kernel timing and bound at the phase-3 shapes --
     with torch.inference_mode():
@@ -1419,9 +1843,14 @@ def main() -> int:
     dense, dense_launches, depth_launches = densify_phase(cfg, dev, t_main)
     emit({"phase": "densify", **dense})
 
-    # -- phase 10: the command line --
-    cli, cli_launches = cli_phase(dev, t_main)
-    emit({"phase": "cli", **cli})
+    with tempfile.TemporaryDirectory() as cli_root:
+        # -- phase 10: the command line --
+        cli, cli_launches = cli_phase(dev, t_main, cli_root)
+        emit({"phase": "cli", **cli})
+
+        # -- phase 11: the mesh path --
+        mesh, mesh_launches = mesh_phase(cfg, served_frames, dense["capacity"], dev, t_main, cli_root)
+        emit({"phase": "mesh", **mesh})
 
     print(smi, flush=True)
     emit({"kernels": [
@@ -1429,7 +1858,7 @@ def main() -> int:
             "name": "raster_fwd", "route": "cuda", "source": "gsplat_tpu_torch/csrc/raster_fwd.cu",
             "replaces": "gsplat_tpu/kernels/raster_fwd.py:68", "launches": launches,
             "densify_fit_launches": dense_launches["raster_fwd"], "render_depth_launches": depth_launches,
-            "cli_launches": cli_launches["raster_fwd"],
+            "cli_launches": cli_launches["raster_fwd"], "mesh_launches": mesh_launches["raster_fwd"],
             "max_abs_err": frame_err, "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None,
             **bound_fields(fwd_bound, kernel_ms),
         },
@@ -1437,6 +1866,7 @@ def main() -> int:
             "name": "raster_bwd", "route": "cuda", "source": "gsplat_tpu_torch/csrc/raster_bwd.cu",
             "replaces": "gsplat_tpu/kernels/raster_bwd.py:45", "launches": train_launches["raster_bwd"],
             "densify_fit_launches": dense_launches["raster_bwd"], "cli_launches": cli_launches["raster_bwd"],
+            "mesh_launches": mesh_launches["raster_bwd"],
             "max_abs_err": frame["rows"]["max_abs_err"], "ms": bwd_ms, "plain_ms": bwd_plain_ms, "library_ms": None,
             **bound_fields(bwd_bound, bwd_ms),
         },

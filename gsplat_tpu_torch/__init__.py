@@ -12,7 +12,7 @@ package loads neither ``click`` nor Pillow). This package imports neither
 JAX nor ``gsplat_tpu``.
 """
 
-from gsplat_tpu_torch.config import DensifyConfig, RasterConfig, TrainConfig
+from gsplat_tpu_torch.config import DensifyConfig, MeshConfig, RasterConfig, TrainConfig
 from gsplat_tpu_torch.models.gaussians import GaussianModel, random_model
 from gsplat_tpu_torch.ops.camera import CameraArrays, CameraParams
 from gsplat_tpu_torch.render.pipeline import (
@@ -35,6 +35,7 @@ __all__ = [
     "CameraParams",
     "DensifyConfig",
     "GaussianModel",
+    "MeshConfig",
     "RasterConfig",
     "TrainConfig",
     "Trainer",

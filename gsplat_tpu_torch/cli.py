@@ -19,7 +19,13 @@ Differences from the JAX CLI:
 * On the card, ``--tile-size`` must be 8, 16, 24 or 32 (the compositors'
   warp rects, ``kernels/cull.py``), and ``--slice-pairs`` must be a
   ``pair_block`` multiple and at least the frame's tile count.
-* ``--mesh`` (multi-GPU) is not ported yet and is refused.
+* ``--mesh DATAxTILE`` runs one process (rank) per mesh position: under
+  ``torchrun --nproc-per-node DATA*TILE`` (a ``1x1`` mesh started without it
+  forms a world of one by itself). ``--device cuda`` takes one card per
+  rank over NCCL, so a mesh larger than the card count is a usage error;
+  ``--device cpu`` runs the ranks over gloo. Rank 0 alone writes files and
+  logs. ``--slice-pairs`` with ``--mesh`` is a usage error: the mesh path is
+  unsliced, and the JAX CLI ignores the flag there.
 * The loop checkpoint is ``<output_path>/train_state.pt``, a ``torch.save``
   file, where the JAX CLI writes an orbax ``train_state`` directory.
 
@@ -29,13 +35,16 @@ Run as ``python -m gsplat_tpu_torch.cli <command> ...`` or, installed, as
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import math
 import os
 
 import click
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from gsplat_tpu_torch.config import RasterConfig, TrainConfig
 from gsplat_tpu_torch.utils.logging import get_logger
@@ -177,7 +186,7 @@ def _check_pairs(model, cameras, cfg: RasterConfig, auto_pairs: bool) -> RasterC
     rotating more splats into frustum can overflow even when the base view
     fits)."""
     from gsplat_tpu_torch.ops.camera import CameraArrays
-    from gsplat_tpu_torch.render.pipeline import binning_stats, required_max_pairs
+    from gsplat_tpu_torch.render.pipeline import binning_stats
 
     if not isinstance(cameras, (list, tuple)):
         cameras = [cameras]
@@ -187,20 +196,44 @@ def _check_pairs(model, cameras, cfg: RasterConfig, auto_pairs: bool) -> RasterC
             cam = CameraArrays.from_params(camera, device=model.means.device)
             stats = binning_stats(model, cam, camera.width, camera.height, cfg)
             demand = max(demand, int(stats["pair_demand"]))
+    return _fit_budget(cfg, demand, auto_pairs, "pair buffer overflow")
+
+
+def _fit_budget(cfg: RasterConfig, demand: int, auto_pairs: bool, what: str) -> RasterConfig:
+    """``cfg`` with ``max_pairs`` covering ``demand`` (with ``auto_pairs``),
+    or unchanged with a warning that the deepest splats will be dropped."""
+    from gsplat_tpu_torch.render.pipeline import required_max_pairs
+
     if demand > cfg.max_pairs:
         target = required_max_pairs(demand)
         if auto_pairs:
-            logger.warning(
-                "pair buffer overflow (demand %d > capacity %d): using "
-                "max_pairs=%d", demand, cfg.max_pairs, target,
-            )
+            logger.warning("%s (demand %d > capacity %d): using max_pairs=%d", what, demand, cfg.max_pairs, target)
             return dataclasses.replace(cfg, max_pairs=target)
         logger.warning(
-            "pair buffer overflow (demand %d > capacity %d): deepest splats "
-            "will be dropped — use --max-pairs %d or --auto-pairs",
-            demand, cfg.max_pairs, target,
+            "%s (demand %d > capacity %d): deepest splats will be dropped — use --max-pairs %d or --auto-pairs",
+            what, demand, cfg.max_pairs, target,
         )
     return cfg
+
+
+def _check_pairs_sharded(model, cameras, cfg: RasterConfig, auto_pairs: bool, mesh) -> RasterConfig:
+    """:func:`_check_pairs` on a mesh: ``max_pairs`` is the PER-SHARD
+    capacity and the strided tile layout only decorrelates load, so the
+    binding number is the largest shard's own demand
+    (``make_sharded_binning_stats``); whole-frame demand would size every
+    shard about tile-fold too large."""
+    from gsplat_tpu_torch.ops.camera import CameraArrays
+    from gsplat_tpu_torch.parallel import make_sharded_binning_stats
+
+    if not isinstance(cameras, (list, tuple)):
+        cameras = [cameras]
+    stats_fn = make_sharded_binning_stats(mesh, cameras[0].width, cameras[0].height, cfg)
+    demand = 0
+    with torch.no_grad():
+        for camera in cameras:
+            cam = CameraArrays.from_params(camera, device=model.means.device)
+            demand = max(demand, int(stats_fn(model, cam)["max_shard_demand"]))
+    return _fit_budget(cfg, demand, auto_pairs, "per-shard pair overflow")
 
 
 def _parse_mesh(mesh: str):
@@ -216,13 +249,56 @@ def _parse_mesh(mesh: str):
     return data, tile
 
 
-def _refuse_mesh(mesh: str) -> None:
-    """``--mesh`` is validated, then refused: multi-GPU is not ported."""
-    if mesh:
-        data, tile = _parse_mesh(mesh)
+def _mesh_dims(mesh: str, device: str, slice_pairs: int):
+    """``--mesh`` checked before any scene I/O: ``(data, tile)``, or None
+    without it."""
+    if not mesh:
+        return None
+    data, tile = _parse_mesh(mesh)
+    ranks = data * tile
+    if slice_pairs > 0:
+        raise click.UsageError("--slice-pairs cannot be combined with --mesh: the mesh path is unsliced")
+    if device == "cuda" and ranks > torch.cuda.device_count():
         raise click.UsageError(
-            f"--mesh {data}x{tile}: multi-GPU is not ported yet; run on one device without --mesh"
+            f"--mesh {data}x{tile} needs {ranks} cards, one per rank; {torch.cuda.device_count()} visible"
         )
+    world = dist.get_world_size() if dist.is_initialized() else int(os.environ.get("WORLD_SIZE", "1"))
+    if world != ranks:
+        raise click.UsageError(
+            f"--mesh {data}x{tile} runs on {ranks} ranks, this world has {world}: "
+            f"launch with torchrun --nproc-per-node {ranks}"
+        )
+    return data, tile
+
+
+@contextlib.contextmanager
+def _mesh_world(dims, device: str):
+    """Yields (the mesh of ``--mesh`` or None, this rank's device). Joins the
+    world ``torchrun`` started (or forms a world of one) unless one is
+    already up, and leaves it on exit if it joined here. On ranks other than
+    0 the package logs errors only (``utils/logging.py``)."""
+    if dims is None:
+        yield None, _resolve(device)
+        return
+    from gsplat_tpu_torch.config import MeshConfig
+    from gsplat_tpu_torch.parallel import initialize_distributed, make_mesh
+
+    started = not dist.is_initialized()
+    dev = initialize_distributed(device=device) if started else _resolve(device)
+    try:
+        mesh = make_mesh(MeshConfig(data=dims[0], tile=dims[1]))
+        get_logger()  # rank 0 alone logs below ERROR
+        logger.info("running on a %dx%d (data x tile) mesh", *dims)
+        yield mesh, dev
+    finally:
+        if started:
+            dist.destroy_process_group()
+        get_logger()
+
+
+def _is_main(mesh) -> bool:
+    """Whether this rank writes the command's files (rank 0, or no mesh)."""
+    return mesh is None or mesh.rank == 0
 
 
 def common_options(fn):
@@ -231,7 +307,8 @@ def common_options(fn):
     return fn
 
 
-_MESH_HELP = "multi-GPU device mesh 'DATAxTILE': not ported yet (refused)"
+_MESH_RUN = (" One rank per mesh position, under torchrun (a 1x1 mesh starts alone); not with "
+             "--slice-pairs. Empty = one device")
 
 
 @click.group()
@@ -244,7 +321,9 @@ def cli():
 @click.option("--output_path", type=str, default="")
 @click.option("--generate_video", is_flag=True, type=bool, default=False)
 @click.option("--show/--no-show", default=True, help="display the matplotlib comparison figure")
-@click.option("--mesh", type=str, default="", help=_MESH_HELP)
+@click.option("--mesh", type=str, default="",
+              help="render over a mesh, '1xTILE': the frame's tile grid split over the tile axis "
+                   "(a single view, so the data axis must be 1)." + _MESH_RUN)
 def render(
     input_dir, trained_model_path, scene_index, scale_factor,
     tile_size, chunk_size, max_pairs, early_stop, device, slice_pairs,
@@ -252,7 +331,12 @@ def render(
     output_path, generate_video, show, mesh,
 ):
     """Render one scene view next to its ground-truth photo."""
-    _refuse_mesh(mesh)  # fail before scene I/O
+    if mesh and _parse_mesh(mesh)[0] != 1:  # fail before scene I/O
+        raise click.BadParameter(
+            f"render is a single view: --mesh must be 1xTILE (got {mesh}; use "
+            "orbit/evaluate for data-parallel batches)"
+        )
+    dims = _mesh_dims(mesh, device, slice_pairs)
     cfg = _raster_config(tile_size, chunk_size, max_pairs, early_stop, device, slice_pairs)
 
     import matplotlib
@@ -262,15 +346,25 @@ def render(
     import matplotlib.image as mpimg
     import matplotlib.pyplot as plt
 
+    from gsplat_tpu_torch.ops.camera import CameraArrays
+    from gsplat_tpu_torch.parallel import make_sharded_render
     from gsplat_tpu_torch.render.pipeline import render as render_fn
     from gsplat_tpu_torch.utils import video as videolib
 
-    dev = _resolve(device)
-    model, camera, gt, gt_img_path = _load_scene(input_dir, trained_model_path, scene_index, scale_factor, dev)
-    _check_slice_pairs(cfg, [camera])
-    with torch.inference_mode():
-        cfg = _check_pairs(model, camera, cfg, auto_pairs)
-        image = render_fn(model, camera, cfg)[0].cpu().numpy()
+    with _mesh_world(dims, device) as (device_mesh, dev):
+        model, camera, gt, gt_img_path = _load_scene(input_dir, trained_model_path, scene_index, scale_factor, dev)
+        _check_slice_pairs(cfg, [camera])
+        with torch.inference_mode():
+            if device_mesh is None:
+                cfg = _check_pairs(model, camera, cfg, auto_pairs)
+                image = render_fn(model, camera, cfg)[0]
+            else:
+                cfg = _check_pairs_sharded(model, camera, cfg, auto_pairs, device_mesh)
+                sharded = make_sharded_render(device_mesh, camera.width, camera.height, cfg)
+                image = sharded(model, CameraArrays.from_params(camera, device=dev))[0]
+            image = image.cpu().numpy()
+        if not _is_main(device_mesh):
+            return
     logger.info("rendered %dx%d from %d gaussians", camera.width, camera.height, model.num_gaussians)
 
     if output_path:
@@ -303,7 +397,9 @@ def render(
 @click.option("--output_path", type=str, default="")
 @click.option("--num-frames", type=int, default=60)
 @click.option("--orbit-degrees", type=float, default=360.0)
-@click.option("--mesh", type=str, default="", help=_MESH_HELP)
+@click.option("--mesh", type=str, default="",
+              help="render over a mesh, 'DATAxTILE': frames split over the data axis, the tiles "
+                   "of a frame over the tile axis (make_batch_render)." + _MESH_RUN)
 def orbit(
     input_dir, trained_model_path, scene_index, scale_factor,
     tile_size, chunk_size, max_pairs, early_stop, device, slice_pairs,
@@ -312,16 +408,51 @@ def orbit(
 ):
     """Render a camera orbit around the scene view as a video
     (BASELINE.json config 2: batched camera poses)."""
-    from gsplat_tpu_torch.ops.camera import CameraArrays, CameraParams
+    from gsplat_tpu_torch.ops.camera import CameraArrays
+    from gsplat_tpu_torch.parallel import make_batch_render
     from gsplat_tpu_torch.render.pipeline import render_batch
     from gsplat_tpu_torch.utils import video as videolib
     from gsplat_tpu_torch.utils.progress import progress
 
-    _refuse_mesh(mesh)  # fail before scene I/O
+    dims = _mesh_dims(mesh, device, slice_pairs)  # fail before scene I/O
     cfg = _raster_config(tile_size, chunk_size, max_pairs, early_stop, device, slice_pairs)
-    dev = _resolve(device)
-    model, camera, _, _ = _load_scene(input_dir, trained_model_path, scene_index, scale_factor, dev)
-    _check_slice_pairs(cfg, [camera])
+    with _mesh_world(dims, device) as (device_mesh, dev):
+        model, camera, _, _ = _load_scene(input_dir, trained_model_path, scene_index, scale_factor, dev)
+        _check_slice_pairs(cfg, [camera])
+        poses = _orbit_poses(camera, num_frames, orbit_degrees)
+        images = []
+        with torch.inference_mode():
+            # An orbit pose can rotate more splats into frustum than the base
+            # view: budget-check the whole trajectory (per shard on a mesh).
+            if device_mesh is None:
+                cfg = _check_pairs(model, poses, cfg, auto_pairs)
+                data, group = 1, 8
+                batch_render = functools.partial(render_batch, width=camera.width, height=camera.height, cfg=cfg)
+            else:
+                cfg = _check_pairs_sharded(model, poses, cfg, auto_pairs, device_mesh)
+                data = dims[0]
+                group = max(data * 4, 8)  # every data row busy in each batch
+                batch_render = make_batch_render(device_mesh, camera.width, camera.height, cfg)
+            cams = [CameraArrays.from_params(p, device=dev) for p in poses]
+            # Render in small batches so progress is visible on long orbits.
+            for i in progress(range(0, num_frames, group), desc="orbit frames"):
+                batch = cams[i : i + group]
+                n_real = len(batch)
+                batch += batch[-1:] * (-n_real % data)  # pad to a data-axis multiple
+                imgs, _ = batch_render(model, CameraArrays.stack(batch))
+                images.extend(imgs[:n_real].cpu().numpy())
+        if not _is_main(device_mesh):
+            return
+    os.makedirs(output_path or ".", exist_ok=True)
+    videolib.write_frames(output_path or ".", images)
+    video_path = videolib.encode_video(output_path or ".", camera.width, camera.height)
+    logger.info("wrote %s (%d frames)", video_path, num_frames)
+
+
+def _orbit_poses(camera, num_frames: int, orbit_degrees: float):
+    """``num_frames`` poses yawed about the camera's own y axis by up to
+    ``orbit_degrees``, from ``camera``."""
+    from gsplat_tpu_torch.ops.camera import CameraParams
 
     poses = []
     for i in range(num_frames):
@@ -345,27 +476,15 @@ def orbit(
                 qvec=tuple(float(v) for v in composed), tvec=camera.tvec,
             )
         )
-    images = []
-    with torch.inference_mode():
-        # An orbit pose can rotate more splats into frustum than the base
-        # view: budget-check the whole trajectory.
-        cfg = _check_pairs(model, poses, cfg, auto_pairs)
-        cams = [CameraArrays.from_params(p, device=dev) for p in poses]
-        # Render in small batches so progress is visible on long orbits.
-        group = 8
-        for i in progress(range(0, num_frames, group), desc="orbit frames"):
-            imgs, _ = render_batch(model, CameraArrays.stack(cams[i : i + group]), camera.width, camera.height, cfg)
-            images.extend(imgs.cpu().numpy())
-    os.makedirs(output_path or ".", exist_ok=True)
-    videolib.write_frames(output_path or ".", images)
-    video_path = videolib.encode_video(output_path or ".", camera.width, camera.height)
-    logger.info("wrote %s (%d frames)", video_path, num_frames)
+    return poses
 
 
 @cli.command()
 @common_options
 @click.option("--output_path", type=str, default="", help="optional metrics.json destination")
-@click.option("--mesh", type=str, default="", help=_MESH_HELP)
+@click.option("--mesh", type=str, default="",
+              help="evaluate over a mesh, 'DATAxTILE': views split over the data axis, the tiles "
+                   "of a view over the tile axis (all views at one resolution)." + _MESH_RUN)
 @click.option("--test-every", type=int, default=0,
               help="score only every Nth view (index %% N == 0) — the "
                    "held-out split of train/finetune --test-every. 0 = all")
@@ -380,29 +499,51 @@ def evaluate(
     import json
 
     from gsplat_tpu_torch.ops.camera import CameraArrays
+    from gsplat_tpu_torch.parallel import make_batch_render
     from gsplat_tpu_torch.render.pipeline import render_traced
     from gsplat_tpu_torch.train.loss import psnr, ssim
     from gsplat_tpu_torch.utils.progress import progress
 
-    _refuse_mesh(mesh)  # fail before scene I/O
+    dims = _mesh_dims(mesh, device, slice_pairs)  # fail before scene I/O
     cfg = _raster_config(tile_size, chunk_size, max_pairs, early_stop, device, slice_pairs)
-    dev = _resolve(device)
-    model, _, _, _ = _load_scene(input_dir, trained_model_path, scene_index, scale_factor, dev)
-    views = _scene_views(input_dir, scale_factor, dev)
-    if test_every > 0:
-        views = views[::test_every]
-        logger.info("evaluating the held-out split: %d views", len(views))
-    _check_slice_pairs(cfg, [cam for _, cam, _ in views])
+    with _mesh_world(dims, device) as (device_mesh, dev):
+        model, _, _, _ = _load_scene(input_dir, trained_model_path, scene_index, scale_factor, dev)
+        views = _scene_views(input_dir, scale_factor, dev)
+        if test_every > 0:
+            views = views[::test_every]
+            logger.info("evaluating the held-out split: %d views", len(views))
+        _check_slice_pairs(cfg, [cam for _, cam, _ in views])
 
-    rows = []
-    with torch.inference_mode():
-        # Budget-check every view (any pose can have the peak pair demand).
-        cfg = _check_pairs(model, [cam for _, cam, _ in views], cfg, auto_pairs)
-        for name, cam, gt in progress(views, desc="evaluate views"):
-            pred, _ = render_traced(model, CameraArrays.from_params(cam, device=dev), cam.width, cam.height, cfg)
+        def scored(name, pred, gt):
             row = {"view": name, "psnr": float(psnr(pred, gt)), "ssim": float(ssim(pred, gt))}
-            rows.append(row)
             logger.info("%s: psnr=%.2f ssim=%.4f", row["view"], row["psnr"], row["ssim"])
+            return row
+
+        rows = []
+        with torch.inference_mode():
+            # Budget-check every view (any pose can have the peak pair demand).
+            if device_mesh is None:
+                cfg = _check_pairs(model, [cam for _, cam, _ in views], cfg, auto_pairs)
+                for name, cam, gt in progress(views, desc="evaluate views"):
+                    pred, _ = render_traced(model, CameraArrays.from_params(cam, device=dev), cam.width, cam.height,
+                                            cfg)
+                    rows.append(scored(name, pred, gt))
+            else:
+                w0, h0 = views[0][1].width, views[0][1].height
+                if any(c.width != w0 or c.height != h0 for _, c, _ in views):
+                    raise click.UsageError("--mesh evaluation requires all views at one resolution")
+                cfg = _check_pairs_sharded(model, [c for _, c, _ in views], cfg, auto_pairs, device_mesh)
+                batch_render = make_batch_render(device_mesh, w0, h0, cfg)
+                data = dims[0]
+                group = max(data * 4, 8)
+                for i in progress(range(0, len(views), group), desc="evaluate views"):
+                    batch = views[i : i + group]
+                    cams = [CameraArrays.from_params(c, device=dev) for _, c, _ in batch]
+                    cams += cams[-1:] * (-len(cams) % data)  # pad to a data-axis multiple
+                    preds, _ = batch_render(model, CameraArrays.stack(cams))
+                    rows.extend(scored(name, pred, gt) for (name, _, gt), pred in zip(batch, preds))
+        if not _is_main(device_mesh):
+            return
     summary = {
         "mean_psnr": float(np.mean([r["psnr"] for r in rows])) if rows else float("nan"),
         "mean_ssim": float(np.mean([r["ssim"] for r in rows])) if rows else float("nan"),
@@ -424,7 +565,9 @@ def _training_options(fn):
         click.option("--sh-warmup-every", type=int, default=0,
                      help="bump the trained SH degree every N steps (3DGS warmup; "
                           "0 = full degree from the start)"),
-        click.option("--mesh", type=str, default="", help=_MESH_HELP),
+        click.option("--mesh", type=str, default="",
+                     help="train on a mesh, 'DATAxTILE' (e.g. 2x4): the camera batch split over the data "
+                          "axis, the tiles over the tile axis (ParallelTrainer)." + _MESH_RUN),
         click.option("--background", type=click.Choice(["black", "white", "random"]),
                      default="black",
                      help="training background composited via the residual "
@@ -480,18 +623,18 @@ def finetune(
 ):
     """Fine-tune the splat model against the scene's ground-truth views
     (BASELINE.json config 4: the full-VJP workload)."""
-    _refuse_mesh(mesh)  # fail before scene I/O
+    dims = _mesh_dims(mesh, device, slice_pairs)  # fail before scene I/O
     cfg = _raster_config(tile_size, chunk_size, max_pairs, early_stop, device, slice_pairs)
-    dev = _resolve(device)
-    model, _, _, _ = _load_scene(input_dir, trained_model_path, scene_index, scale_factor, dev)
-    views = _load_views(input_dir, scale_factor, dev)
-    logger.info("fine-tuning on %d views for %d steps", len(views), steps)
-    _run_training(
-        model, views, cfg, auto_pairs, output_path, steps, ssim_weight,
-        save_iteration, densify, densify_every, densify_grad_threshold,
-        sh_warmup_every, background, lr_decay_steps, lr_means_final,
-        lr_scale_extent, test_every, checkpoint_every, resume,
-    )
+    with _mesh_world(dims, device) as (device_mesh, dev):
+        model, _, _, _ = _load_scene(input_dir, trained_model_path, scene_index, scale_factor, dev)
+        views = _load_views(input_dir, scale_factor, dev)
+        logger.info("fine-tuning on %d views for %d steps", len(views), steps)
+        _run_training(
+            model, views, cfg, auto_pairs, output_path, steps, ssim_weight,
+            save_iteration, densify, densify_every, densify_grad_threshold,
+            sh_warmup_every, background, lr_decay_steps, lr_means_final,
+            lr_scale_extent, test_every, checkpoint_every, resume, device_mesh,
+        )
 
 
 @cli.command()
@@ -524,27 +667,27 @@ def train(
     from gsplat_tpu_torch.io.scene import read_points3d
     from gsplat_tpu_torch.models.gaussians import GaussianModel
 
-    _refuse_mesh(mesh)  # fail before scene I/O
+    dims = _mesh_dims(mesh, device, slice_pairs)  # fail before scene I/O
     cfg = _raster_config(tile_size, chunk_size, max_pairs, early_stop, device, slice_pairs)
-    dev = _resolve(device)
-    if trained_model_path:
-        from gsplat_tpu_torch.io.ply import load_splat_arrays
-        from gsplat_tpu_torch.io.scene import checkpoint_ply_path
+    with _mesh_world(dims, device) as (device_mesh, dev):
+        if trained_model_path:
+            from gsplat_tpu_torch.io.ply import load_splat_arrays
+            from gsplat_tpu_torch.io.scene import checkpoint_ply_path
 
-        model = GaussianModel.from_arrays(load_splat_arrays(checkpoint_ply_path(trained_model_path)), device=dev)
-        init_desc = f"checkpoint {trained_model_path} ({model.num_gaussians} splats)"
-    else:
-        xyzs, rgbs, _ = read_points3d(input_dir)
-        model = GaussianModel.from_points3d(xyzs, rgbs, initial_opacity=initial_opacity, device=dev)
-        init_desc = f"{model.num_gaussians} SfM points"
-    views = _load_views(input_dir, scale_factor, dev)
-    logger.info("training from %s on %d views for %d steps", init_desc, len(views), steps)
-    _run_training(
-        model, views, cfg, auto_pairs, output_path, steps, ssim_weight,
-        save_iteration, densify, densify_every, densify_grad_threshold,
-        sh_warmup_every, background, lr_decay_steps, lr_means_final,
-        lr_scale_extent, test_every, checkpoint_every, resume,
-    )
+            model = GaussianModel.from_arrays(load_splat_arrays(checkpoint_ply_path(trained_model_path)), device=dev)
+            init_desc = f"checkpoint {trained_model_path} ({model.num_gaussians} splats)"
+        else:
+            xyzs, rgbs, _ = read_points3d(input_dir)
+            model = GaussianModel.from_points3d(xyzs, rgbs, initial_opacity=initial_opacity, device=dev)
+            init_desc = f"{model.num_gaussians} SfM points"
+        views = _load_views(input_dir, scale_factor, dev)
+        logger.info("training from %s on %d views for %d steps", init_desc, len(views), steps)
+        _run_training(
+            model, views, cfg, auto_pairs, output_path, steps, ssim_weight,
+            save_iteration, densify, densify_every, densify_grad_threshold,
+            sh_warmup_every, background, lr_decay_steps, lr_means_final,
+            lr_scale_extent, test_every, checkpoint_every, resume, device_mesh,
+        )
 
 
 def _run_training(
@@ -552,12 +695,14 @@ def _run_training(
     save_iteration, densify, densify_every, densify_grad_threshold,
     sh_warmup_every, background="black", lr_decay_steps=0,
     lr_means_final=1.6e-6, lr_scale_extent=False, test_every=0,
-    checkpoint_every=500, resume=False,
+    checkpoint_every=500, resume=False, device_mesh=None,
 ):
     """Train ``model`` on ``views`` with the options of ``finetune`` /
-    ``train``, report the held-out split, export the PLY. Returns (model,
-    history); without densification ``model`` is updated in place."""
+    ``train`` (on ``device_mesh``, a ``parallel.Mesh``, when given), report
+    the held-out split, export the PLY (rank 0). Returns (model, history);
+    without densification ``model`` is updated in place."""
     from gsplat_tpu_torch.config import DensifyConfig
+    from gsplat_tpu_torch.parallel import ParallelTrainer
     from gsplat_tpu_torch.train.checkpoint import save_ply_checkpoint
     from gsplat_tpu_torch.train.trainer import Trainer
     from gsplat_tpu_torch.utils.logging import log_metrics
@@ -600,7 +745,10 @@ def _run_training(
     if resume and not output_path:
         raise click.UsageError("--resume requires --output_path (the "
                                "checkpoint lives at <output_path>/train_state.pt)")
-    trainer = Trainer(raster=cfg, train=train_cfg, auto_pairs=auto_pairs)
+    if device_mesh is None:
+        trainer = Trainer(raster=cfg, train=train_cfg, auto_pairs=auto_pairs)
+    else:
+        trainer = ParallelTrainer(mesh=device_mesh, raster=cfg, train=train_cfg, auto_pairs=auto_pairs)
     model, history = trainer.fit(
         model, views, log_fn=lambda r: log_metrics(logger, r["step"], r),
         checkpoint_dir=output_path or None, resume=resume,
@@ -620,7 +768,7 @@ def _run_training(
             "held-out (%d views): PSNR %.2f  SSIM %.4f",
             len(vals), mean_psnr, mean_ssim,
         )
-    if output_path:
+    if output_path and _is_main(device_mesh):
         ply = save_ply_checkpoint(output_path, model, iteration=save_iteration)
         logger.info("saved trained checkpoint to %s", ply)
     return model, history

@@ -1,7 +1,7 @@
 """Configuration of the PyTorch port: the reference constants, the
 rasterization settings and the training settings.
 
-Mirrors ``gsplat_tpu/config.py``. The kernel/plain choice is not a setting
+Mirrors ``gsplat_tpu/config.py``, ``MeshConfig`` included. The kernel/plain choice is not a setting
 here: every rasterizer call dispatches on the device of its tensors (a CUDA
 tensor launches the hand-written kernel, a CPU tensor takes its plain
 PyTorch version), so ``use_pallas`` and ``force_pallas_interpret`` have no
@@ -169,3 +169,16 @@ class TrainConfig:
     checkpoint_every: int = 500
     densify: Optional[DensifyConfig] = None
     sh_warmup_every: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Device-mesh layout, axes data (camera batch) x tile (framebuffer
+    tiles); one process (rank) per mesh position (``parallel/mesh.py``)."""
+
+    data: int = 1
+    tile: int = 1
+
+    @property
+    def num_devices(self) -> int:
+        return self.data * self.tile

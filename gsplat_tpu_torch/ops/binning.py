@@ -84,6 +84,39 @@ def tile_ranges(bbox: torch.Tensor, tile_size: int, n_tiles_x: int, n_tiles_y: i
     return tx0.to(i32), ty0.to(i32), ntx.to(i32), nty.to(i32)
 
 
+def strided_tile_ranges(
+    bbox: torch.Tensor,
+    tile_size: int,
+    n_tiles_x: int,
+    n_tiles_y: int,
+    stride_x: int,
+    stride_y: int,
+    offset_x: int,
+    offset_y: int,
+):
+    """Tile ranges intersected with the 2D-strided tile subset
+    ``{(tx, ty) : tx = offset_x (mod stride_x), ty = offset_y (mod
+    stride_y)}``, in the subset's local grid
+    ``ceil(n_tiles_x/stride_x) x ceil(n_tiles_y/stride_y)`` (local index j
+    is global tile ``offset + j*stride``). Rect coverage stays separable per
+    axis, so a tile shard bins its own tiles with the whole-frame binning.
+    Returns local ``(tx0, ty0, ntx, nty)``, each ``[N]`` int32."""
+    gx0, gy0, gnx, gny = tile_ranges(bbox, tile_size, n_tiles_x, n_tiles_y)
+
+    def per_axis(a, n, off, stride):
+        # local j with a <= off + j*stride < a + n: j in
+        # [ceil((a-off)/stride), ceil((a+n-off)/stride)); the numerators can
+        # be negative, so the divisions round toward -inf.
+        j0 = -torch.div(off - a, stride, rounding_mode="floor")
+        j1 = -torch.div(off - a - n, stride, rounding_mode="floor")
+        return j0.to(torch.int32), (j1 - j0).clamp(min=0).to(torch.int32)
+
+    lx0, lnx = per_axis(gx0, gnx, offset_x, stride_x)
+    ly0, lny = per_axis(gy0, gny, offset_y, stride_y)
+    empty = (gnx == 0) | (gny == 0)
+    return lx0, ly0, torch.where(empty, 0, lnx), torch.where(empty, 0, lny)
+
+
 def depth_key(depth: torch.Tensor) -> torch.Tensor:
     """Monotone unsigned 32-bit key of f32 depths, as int64 in [0, 2^32)."""
     bits = depth.detach().to(torch.float32).contiguous().view(torch.int32).to(torch.int64) & _DKEY_MAX

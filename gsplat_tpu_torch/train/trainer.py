@@ -91,8 +91,162 @@ def optimizer_step(optimizer: torch.optim.Adam, tc: TrainConfig) -> None:
     means["updates"] += 1
 
 
+def check_background(tc: TrainConfig) -> None:
+    if tc.background not in ("black", "white", "random"):
+        raise ValueError(f"TrainConfig.background must be black|white|random, got {tc.background!r}")
+
+
+def background(tc: TrainConfig, rng: np.random.Generator, device) -> torch.Tensor:
+    """A step's background colour ``[3]`` on ``device``, per
+    ``tc.background`` ("random" draws a fresh colour from ``rng``, a numpy
+    generator seeded 0 as the JAX trainers seed theirs, so both draw the
+    same colours)."""
+    if tc.background == "white":
+        return torch.ones(3, device=device)
+    if tc.background == "random":
+        colour = torch.from_numpy(rng.uniform(size=3).astype(np.float32))
+        return colour.to(device, non_blocking=True)
+    return torch.zeros(3, device=device)
+
+
+class FitLoop:
+    """The loop that :class:`Trainer` and ``parallel.shard.ParallelTrainer``
+    share: resume, the densify pool, SH warmup, the background draws, the
+    densify and opacity-reset schedule, the history, the capacity re-checks
+    and the loop checkpoints. A trainer provides ``raster``, ``train``,
+    ``show_progress`` and ``_bg_rng`` and the hooks below: each step trains
+    on ``_views_per_step()`` views taken round-robin."""
+
+    _desc = "finetune"  # the progress bar's label
+    _main = True  # this process logs and calls ``log_fn``
+
+    def _views_per_step(self) -> int:
+        return 1
+
+    def _start(self, model, views, resumed: bool) -> None:
+        """Before the first step (after a restore, when ``resumed``)."""
+
+    def _begin(self, model, views, start_step: int) -> None:
+        """Once the pool and optimizer exist: the first capacity check."""
+        raise NotImplementedError
+
+    def _train_views(self, model, optimizer, views, idx, bg, sh_degree, with_vs):
+        """One update on ``views[i] for i in idx``. Returns (metrics, the
+        densify samples ``[(viewspace gradient [C, 2], width, height, radii
+        [C]), ...]``, one per view when ``with_vs``, else none)."""
+        raise NotImplementedError
+
+    def _recheck(self, model, views, idx) -> None:
+        """Re-check the pair budget on ``views[i] for i in idx``."""
+        raise NotImplementedError
+
+    def _save(self, checkpoint_dir, *state) -> None:
+        CK.save_loop_state(checkpoint_dir, *state)
+
+    def fit(
+        self,
+        model: GaussianModel,
+        views: Sequence[Tuple[CameraParams, torch.Tensor]],
+        steps: Optional[int] = None,
+        log_fn=None,
+        checkpoint_dir: Optional[str] = None,
+        resume: bool = False,
+    ) -> Tuple[GaussianModel, List[Dict[str, float]]]:
+        """Round-robin over (camera, ground-truth image ``[H, W, 3]``) views.
+        Returns (model, history), one history record every ``log_every``
+        steps and at the last step.
+
+        Without densification the given ``model`` is updated in place and
+        returned. With ``train.densify`` it is first copied into a
+        fixed-capacity pool (``train/densify.py``); the viewspace gradient
+        and projected radii are accumulated every step, the clone/split/prune
+        pass runs at the configured cadence, and the returned model is the
+        pool compacted to its live gaussians.
+
+        With ``checkpoint_dir`` the whole loop state (model, optimizer,
+        next step, densify accumulator and generator) is saved to
+        ``<dir>/train_state.pt`` every ``train.checkpoint_every`` steps and
+        at the end; ``resume=True`` restores it, when present, in place of
+        ``model`` (on ``model``'s device) and continues from the saved step
+        with the same view rotation and random draws, so an interrupted run
+        reaches the parameters of an uninterrupted one. History then covers
+        the resumed steps only.
+        """
+        steps = steps if steps is not None else self.train.steps
+        dc = self.train.densify
+        dev = model.means.device
+        dstate = generator = optimizer = None
+        start_step = 0
+        resumed = bool(resume and checkpoint_dir and CK.has_loop_state(checkpoint_dir))
+        if resumed:
+            model, optimizer, start_step, dstate, generator = CK.restore_loop_state(
+                checkpoint_dir, lambda m: make_optimizer(m, self.train), device=dev
+            )
+            if self._main:
+                logger.info("resumed from %s at step %d", CK.loop_state_path(checkpoint_dir), start_step)
+            if self.train.background == "random":
+                # Replay the numpy RNG to the resume point, so the background
+                # sequence goes on where the interrupted run left it.
+                for _ in range(start_step):
+                    self._bg_rng.uniform(size=3)
+        self._start(model, views, resumed)
+        if dc is not None:
+            extent = D.camera_extent([c for c, _ in views])
+            if optimizer is None:
+                model = D.init_pool(model, dc)
+                dstate = D.DensifyState.zero(model.num_gaussians, dev)
+                generator = torch.Generator(device=dev).manual_seed(0)
+        if optimizer is None:
+            optimizer = make_optimizer(model, self.train)
+        history: List[Dict[str, float]] = []
+        self._begin(model, views, start_step)
+        per = self._views_per_step()
+        for step in progress(range(start_step, steps), desc=self._desc, enabled=self.show_progress):
+            idx = [(step * per + i) % len(views) for i in range(per)]
+            # 3DGS SH warmup: view-dependent colour is introduced band by band.
+            deg = self.raster.sh_degree
+            if self.train.sh_warmup_every > 0:
+                deg = min(step // self.train.sh_warmup_every, deg)
+            bg = background(self.train, self._bg_rng, dev)
+            metrics, samples = self._train_views(model, optimizer, views, idx, bg, deg, dc is not None)
+            if dc is not None:
+                for vs_grad, width, height, radii in samples:
+                    dstate = D.accumulate(dstate, vs_grad, width, height, radii)
+                if dc.start <= step < dc.until and step > 0 and step % dc.every == 0:
+                    _, touched, dstats = D.densify_prune_step(model, dstate, generator, extent, dc, step=step)
+                    D.reset_opt_rows(optimizer, touched)
+                    dstate = D.DensifyState.zero(model.num_gaussians, dev)
+                    if self._main:
+                        logger.info(
+                            "densify @%d: +%d clone +%d split -%d prune (%d alive)",
+                            step, dstats["cloned"], dstats["split"], dstats["pruned"], dstats["alive"],
+                        )
+                    # Clones and splits grow the pair demand.
+                    self._recheck(model, views, idx)
+                if dc.opacity_reset_every and step > 0 and step % dc.opacity_reset_every == 0:
+                    D.reset_opacity(model)
+            if step % self.train.log_every == 0 or step == steps - 1:
+                record = {k: float(v) for k, v in metrics.items()}
+                record["step"] = step
+                history.append(record)
+                if log_fn is not None and self._main:
+                    log_fn(record)
+                if step > 0:  # splats grow during training; re-check budget
+                    self._recheck(model, views, idx[:1])
+            if (checkpoint_dir and self.train.checkpoint_every > 0
+                    and (step + 1) % self.train.checkpoint_every == 0 and step + 1 < steps):
+                self._save(checkpoint_dir, model, optimizer, step + 1, dstate, generator)
+        if checkpoint_dir:
+            # The final state, before compaction (the densify state describes
+            # the pool): a later resume with more steps continues from here.
+            self._save(checkpoint_dir, model, optimizer, steps, dstate, generator)
+        if dc is not None:
+            model = D.compact(model)
+        return model, history
+
+
 @dataclasses.dataclass
-class Trainer:
+class Trainer(FitLoop):
     """Single-device trainer.
 
     ``auto_pairs``: the pair buffer has a fixed capacity
@@ -110,10 +264,7 @@ class Trainer:
     show_progress: bool = True
 
     def __post_init__(self):
-        if self.train.background not in ("black", "white", "random"):
-            raise ValueError(
-                f"TrainConfig.background must be black|white|random, got {self.train.background!r}"
-            )
+        check_background(self.train)
         self._bg_rng = np.random.default_rng(0)
 
     def init_state(self, model: GaussianModel) -> torch.optim.Adam:
@@ -121,15 +272,8 @@ class Trainer:
         return make_optimizer(model, self.train)
 
     def draw_background(self, device) -> torch.Tensor:
-        """This step's background colour ``[3]`` on ``device``, per ``TrainConfig.background``
-        ("random" draws a fresh colour from the trainer's numpy RNG, as the
-        JAX trainer does, so both draw the same colours)."""
-        if self.train.background == "white":
-            return torch.ones(3, device=device)
-        if self.train.background == "random":
-            colour = torch.from_numpy(self._bg_rng.uniform(size=3).astype(np.float32))
-            return colour.to(device, non_blocking=True)
-        return torch.zeros(3, device=device)
+        """This step's background colour ``[3]`` on ``device`` (:func:`background`)."""
+        return background(self.train, self._bg_rng, device)
 
     def _step(self, model, optimizer, cam, target, bg, width, height, cfg, screen_offset=None):
         """One update. Returns (metrics, the preprocess of the model before
@@ -203,101 +347,20 @@ class Trainer:
                 )
         return self.raster
 
-    def fit(
-        self,
-        model: GaussianModel,
-        views: Sequence[Tuple[CameraParams, torch.Tensor]],
-        steps: Optional[int] = None,
-        log_fn=None,
-        checkpoint_dir: Optional[str] = None,
-        resume: bool = False,
-    ) -> Tuple[GaussianModel, List[Dict[str, float]]]:
-        """Round-robin over (camera, ground-truth image ``[H, W, 3]``) views.
-        Returns (model, history), one history record every ``log_every``
-        steps and at the last step.
-
-        Without densification the given ``model`` is updated in place and
-        returned. With ``train.densify`` it is first copied into a
-        fixed-capacity pool (``train/densify.py``); the viewspace gradient
-        and projected radii are accumulated every step, the clone/split/prune
-        pass runs at the configured cadence, and the returned model is the
-        pool compacted to its live gaussians.
-
-        With ``checkpoint_dir`` the whole loop state (model, optimizer,
-        next step, densify accumulator and generator) is saved to
-        ``<dir>/train_state.pt`` every ``train.checkpoint_every`` steps and
-        at the end; ``resume=True`` restores it, when present, in place of
-        ``model`` (on ``model``'s device) and continues from the saved step
-        with the same view rotation and random draws, so an interrupted run
-        reaches the parameters of an uninterrupted one. History then covers
-        the resumed steps only.
-        """
-        steps = steps if steps is not None else self.train.steps
-        dc = self.train.densify
-        dev = model.means.device
-        dstate = generator = optimizer = None
-        start_step = 0
-        if resume and checkpoint_dir and CK.has_loop_state(checkpoint_dir):
-            model, optimizer, start_step, dstate, generator = CK.restore_loop_state(
-                checkpoint_dir, self.init_state, device=dev
-            )
-            logger.info("resumed from %s at step %d", CK.loop_state_path(checkpoint_dir), start_step)
-            if self.train.background == "random":
-                # Replay the numpy RNG to the resume point, so the background
-                # sequence goes on where the interrupted run left it.
-                for _ in range(start_step):
-                    self._bg_rng.uniform(size=3)
-        if dc is not None:
-            extent = D.camera_extent([c for c, _ in views])
-            if optimizer is None:
-                model = D.init_pool(model, dc)
-                dstate = D.DensifyState.zero(model.num_gaussians, dev)
-                generator = torch.Generator(device=dev).manual_seed(0)
-        if optimizer is None:
-            optimizer = self.init_state(model)
-        history: List[Dict[str, float]] = []
+    def _begin(self, model, views, start_step):
         self.check_capacity(model, views[start_step % len(views)][0])
-        for step in progress(range(start_step, steps), desc="finetune", enabled=self.show_progress):
-            camera, target = views[step % len(views)]
-            # 3DGS SH warmup: view-dependent colour is introduced band by band.
-            step_cfg = self.raster
-            if self.train.sh_warmup_every > 0:
-                deg = min(step // self.train.sh_warmup_every, self.raster.sh_degree)
-                if deg != self.raster.sh_degree:
-                    step_cfg = dataclasses.replace(self.raster, sh_degree=deg)
-            cam = CameraArrays.from_params(camera, dtype=model.means.dtype, device=dev)
-            args = (model, optimizer, cam, target, self.draw_background(dev), camera.width, camera.height, step_cfg)
-            if dc is None:
-                metrics, _ = self._step(*args)
-            else:
-                metrics, vs_grad, radii = self._step_vs(*args)
-                dstate = D.accumulate(dstate, vs_grad, camera.width, camera.height, radii)
-                if dc.start <= step < dc.until and step > 0 and step % dc.every == 0:
-                    _, touched, dstats = D.densify_prune_step(model, dstate, generator, extent, dc, step=step)
-                    D.reset_opt_rows(optimizer, touched)
-                    dstate = D.DensifyState.zero(model.num_gaussians, dev)
-                    logger.info(
-                        "densify @%d: +%d clone +%d split -%d prune (%d alive)",
-                        step, dstats["cloned"], dstats["split"], dstats["pruned"], dstats["alive"],
-                    )
-                    self.check_capacity(model, camera)
-                if dc.opacity_reset_every and step > 0 and step % dc.opacity_reset_every == 0:
-                    D.reset_opacity(model)
-            if step % self.train.log_every == 0 or step == steps - 1:
-                record = {k: float(v) for k, v in metrics.items()}
-                record["step"] = step
-                history.append(record)
-                if log_fn is not None:
-                    log_fn(record)
-                if step > 0:  # splats grow during training; re-check budget
-                    self.check_capacity(model, views[step % len(views)][0])
-            if (checkpoint_dir and self.train.checkpoint_every > 0
-                    and (step + 1) % self.train.checkpoint_every == 0 and step + 1 < steps):
-                CK.save_loop_state(checkpoint_dir, model, optimizer, step + 1, dstate, generator)
-        if checkpoint_dir:
-            # The final state, before compaction (the densify state describes
-            # the pool): a later resume with more steps continues from here.
-            CK.save_loop_state(checkpoint_dir, model, optimizer, steps, dstate, generator)
-        if dc is not None:
-            model = D.compact(model)
-        return model, history
+
+    def _train_views(self, model, optimizer, views, idx, bg, sh_degree, with_vs):
+        camera, target = views[idx[0]]
+        cfg = self.raster
+        if sh_degree != cfg.sh_degree:
+            cfg = dataclasses.replace(cfg, sh_degree=sh_degree)
+        cam = CameraArrays.from_params(camera, dtype=model.means.dtype, device=model.means.device)
+        args = (model, optimizer, cam, target, bg, camera.width, camera.height, cfg)
+        if not with_vs:
+            return self._step(*args)[0], []
+        metrics, vs_grad, radii = self._step_vs(*args)
+        return metrics, [(vs_grad, camera.width, camera.height, radii)]
+
+    def _recheck(self, model, views, idx):
+        self.check_capacity(model, views[idx[0]][0])

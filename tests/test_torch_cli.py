@@ -232,12 +232,16 @@ def test_orbit_auto_pairs_resizes(scene_dir, tmp_path):
     assert os.path.exists(os.path.join(out, VIDEO_NAME))
 
 
-@pytest.mark.parametrize("case", ["mesh", "test_every_1", "resume_without_output", "tile_20_cuda", "slice_pairs"])
+@pytest.mark.parametrize("case", ["mesh", "test_every_1", "resume_without_output", "tile_20_cuda", "slice_pairs",
+                                  "mesh_cuda_cards", "mesh_without_torchrun", "render_mesh_data_axis"])
 def test_usage_errors(scene_dir, tmp_path, case):
     out = str(tmp_path / "out")
     args = _args(scene_dir, out, True)
     command, extra, message = {
-        "mesh": ("evaluate", ["--mesh", "2x2"], "multi-GPU is not ported"),
+        "mesh": ("evaluate", ["--mesh", "2x2", "--slice-pairs", "1024"], "--slice-pairs cannot be combined with --mesh"),
+        "mesh_cuda_cards": ("evaluate", ["--mesh", "2x2", "--device", "cuda"], "needs 4 cards, one per rank"),
+        "mesh_without_torchrun": ("finetune", ["--mesh", "2x1", "--steps", "1"], "launch with torchrun --nproc-per-node 2"),
+        "render_mesh_data_axis": ("render", ["--no-show", "--mesh", "2x1"], "render is a single view"),
         "test_every_1": ("train", ["--steps", "2", "--no-densify", "--test-every", "1"], "holds out every view"),
         "resume_without_output": ("finetune", ["--steps", "2", "--resume"], "--resume requires --output_path"),
         "tile_20_cuda": ("render", ["--no-show", "--tile-size", "20", "--device", "cuda"], "tile_size 20"),
@@ -314,3 +318,56 @@ def test_imports_stay_light():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120,
                          check=True)
     assert out.stdout.strip() == "[] []", out.stdout + out.stderr
+
+
+@pytest.mark.parametrize("command,mesh", [("render", "1x2"), ("orbit", "2x1"), ("evaluate", "1x2"), ("finetune", "2x2")])
+def test_mesh_matches_jax(scene_dir, tmp_path, command, mesh):
+    """``--mesh`` on the port's ranks (a spawned gloo world, ``--device
+    cpu``) writes what the JAX CLI writes with the same ``--mesh`` on its
+    virtual devices, at this file's tolerances; rank 0 alone writes."""
+    import torch_mesh_worker as worker
+
+    from gsplat_tpu_torch.io.ply import load_splat_arrays
+    from gsplat_tpu_torch.io.scene import checkpoint_ply_path
+
+    extra = {"render": ["--no-show"], "orbit": ["--num-frames", "3"], "evaluate": [],
+             "finetune": ["--steps", "2", "--checkpoint-every", "1"]}
+    outs = {port: str(tmp_path / ("port" if port else "jax")) for port in (False, True)}
+    _invoke(command, [*_args(scene_dir, outs[False], False), *extra[command], "--mesh", mesh], port=False)
+    data, tile = (int(x) for x in mesh.split("x"))
+    ranks = worker.spawn_world(worker.cli_world, data * tile, tmp_path,
+                               [command, *_args(scene_dir, outs[True], True), *extra[command], "--mesh", mesh])
+    assert len(ranks) == data * tile
+    j_out, out = outs[False], outs[True]
+    if command == "render":
+        assert np.abs(_png(os.path.join(out, "render.png")) - _png(os.path.join(j_out, "render.png"))).max() <= 1
+        assert os.path.exists(os.path.join(out, "comparison.png"))
+    elif command == "orbit":
+        frames = sorted(os.listdir(os.path.join(out, "images")))
+        assert frames == sorted(os.listdir(os.path.join(j_out, "images"))) and len(frames) == 3 + 40
+        for name in frames:
+            got, want = (_png(os.path.join(d, "images", name)) for d in (out, j_out))
+            assert np.abs(got - want).max() <= 1, name
+    elif command == "evaluate":
+        got, want = (json.load(open(os.path.join(d, "metrics.json"))) for d in (out, j_out))
+        assert [v["view"] for v in got["views"]] == [v["view"] for v in want["views"]] and len(got["views"]) == 2
+        for a, b in zip(got["views"], want["views"]):
+            assert abs(a["psnr"] - b["psnr"]) < 1e-3 and abs(a["ssim"] - b["ssim"]) < 1e-5, (a, b)
+    else:
+        got, want = (load_splat_arrays(checkpoint_ply_path(d, 30001)) for d in (out, j_out))
+        for k, w in want.items():
+            np.testing.assert_allclose(got[k], w, rtol=2e-3, atol=5e-5 * np.abs(w).max(), err_msg=k)
+        assert os.path.isfile(os.path.join(out, "train_state.pt"))
+
+
+def test_mesh_1x1_forms_its_own_world(scene_dir, tmp_path):
+    """``--mesh 1x1`` without ``torchrun`` forms a world of one, scores as
+    one device does, and leaves no process group behind."""
+    import torch.distributed as dist
+
+    outs = [str(tmp_path / name) for name in ("plain", "mesh")]
+    _invoke("evaluate", _args(scene_dir, outs[0], True))
+    _invoke("evaluate", [*_args(scene_dir, outs[1], True), "--mesh", "1x1"])
+    assert not dist.is_initialized()
+    got, want = (json.load(open(os.path.join(d, "metrics.json"))) for d in outs[::-1])
+    assert got == want

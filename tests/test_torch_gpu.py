@@ -518,3 +518,57 @@ def test_cli_on_card_matches_cpu(device, tmp_path):
     assert [v["view"] for v in card] == [v["view"] for v in cpu] == ["view_0.png", "view_1.png"]
     for a, b in zip(card, cpu):
         assert abs(a["psnr"] - b["psnr"]) < 1e-3 and abs(a["ssim"] - b["ssim"]) < 1e-5, (a, b)
+
+
+def _mesh_arrays(n, seed):
+    """Random splat parameters in front of :func:`_pinhole`'s camera."""
+    rng = np.random.default_rng(seed)
+    return {
+        "means": rng.uniform(-1, 1, (n, 3)).astype(np.float32),
+        "log_scales": rng.uniform(-4.0, -1.5, (n, 3)).astype(np.float32),
+        "quats": rng.normal(size=(n, 4)).astype(np.float32),
+        "opacity_logits": rng.uniform(-1.0, 4.0, n).astype(np.float32),
+        "sh": (rng.normal(size=(n, 16, 3)) * 0.3).astype(np.float32),
+    }
+
+
+def _pinhole(width, height):
+    """``scene``'s camera at another frame size, as ``CameraParams`` fields."""
+    fx = 0.8 * width
+    return dict(width=width, height=height, fov_x=2 * math.atan(width / (2 * fx)),
+                fov_y=2 * math.atan(height / (2 * fx)), focal_x=fx, focal_y=fx,
+                qvec=(math.cos(0.075), 0.0, math.sin(0.075), 0.0), tvec=(0.0, 0.0, 4.0))
+
+
+def test_mesh_render_on_padded_frame_is_bitwise(device, tmp_path):
+    """A 1x4 mesh of gloo ranks sharing the card renders a 200x150 frame at
+    tile 16 (a 13x10 grid, stride 2x2, local 7x5): the padding column's
+    tile ids alias the next row's first tile and the last row's run past
+    the grid, with zero pairs. The frame is bitwise the single-device one,
+    through the forward kernel on every rank."""
+    import torch_mesh_worker as worker
+
+    ranks = worker.spawn_world(worker.padded_frame_world, 4, tmp_path, _mesh_arrays(3000, 12), _pinhole(200, 150),
+                               dict(tile_size=16, chunk_size=8, pair_block=8, max_pairs=1 << 16), device="cuda")
+    for rank in ranks:
+        assert rank["bitwise"], rank
+        assert rank["launches"] == 2  # the single-device render and this rank's tiles
+
+
+def test_mesh_step_on_card_matches_one_device(device, tmp_path):
+    """One 2x2 train step of gloo ranks sharing the card, with one camera
+    repeated over the batch, against the 1x1 step: loss at rtol 1e-5, means
+    at rtol 1e-4 / atol 1e-7 (as ``tests/test_parallel.py`` holds JAX's
+    mesh shapes), the replicas bitwise equal."""
+    import torch_mesh_worker as worker
+
+    arrays, cam = _mesh_arrays(300, 13), _pinhole(worker.W, worker.H)
+    target = np.random.default_rng(3).uniform(0, 1, (worker.H, worker.W, 3)).astype(np.float32)
+    one = worker.spawn_world(worker.repeated_step_world, 1, tmp_path / "one", arrays, cam, target, 1, 1,
+                             device="cuda")[0]
+    four = worker.spawn_world(worker.repeated_step_world, 4, tmp_path / "four", arrays, cam, target, 2, 2,
+                              device="cuda")
+    assert len({r["digest"] for r in four}) == 1
+    got = four[0]
+    assert got["loss"] == pytest.approx(one["loss"], rel=1e-5)
+    np.testing.assert_allclose(got["params"]["means"], one["params"]["means"], rtol=1e-4, atol=1e-7)
