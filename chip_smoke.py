@@ -4,7 +4,7 @@
 Usage: ``python3 chip_smoke.py`` from the repository root, on a machine with
 one NVIDIA H100 (or another sm_90a card) and the CUDA toolkit. It builds the
 port's CUDA kernels from ``gsplat_tpu_torch/csrc`` (into ``build/kernels``),
-then runs eleven phases, each printing one JSON line:
+then runs twelve phases, each printing one JSON line:
 
   1. device: the card's name and power limit, torch/CUDA versions, kernel
      build time, the compiler's register report and each kernel's
@@ -78,17 +78,28 @@ then runs eleven phases, each printing one JSON line:
      200x150 frame at tile 16 on 1x4 (shard padding tiles alias the next
      row or lie past the grid) bitwise, one SSIM-free step with one camera
      repeated over the batch on each mesh against the 1x1 step, and the same
-     step with the pair reduction made exact (``exact_pair_reduction``) on
-     every mesh and on 1x1: with it, the means after the step at rtol 1e-4 /
-     atol 1e-7 of 1x1's on every element; with the f32 reduction, the loss,
-     and the means gradient no further from 1x1's exact-reduction gradient
-     than twice 1x1's own f32 gradient is. Then a
-     densifying 2x2 ``ParallelTrainer.fit`` from phase 9's cloud leaving the
+     step with the pair reduction made exact (``RasterConfig.
+     exact_grad_reduction``) on every mesh and on 1x1: with it, the means
+     after the step at rtol 1e-4 / atol 1e-7 of 1x1's on every element;
+     with the f32 reduction, the loss, and the means gradient no further
+     from 1x1's exact-reduction gradient than twice 1x1's own f32 gradient
+     is. Then a densifying 2x2 ``ParallelTrainer.fit`` from phase 9's cloud leaving the
      replicas bitwise equal. Its times are four processes sharing one card
      through the host, not multi-GPU times. (c) The command line with
      ``--mesh 1x1 --device cuda`` on phase 10's scene: ``orbit`` frames and
      ``evaluate``'s ``metrics.json`` equal to phase 10's, a 3-step
      ``finetune`` PLY bitwise a 1x1 ``ParallelTrainer``'s.
+ 12. tilings: the kernels at other tilings (``tilings_phase``). The phase-3
+     model at tiles 16 and 64 (capacity 1.5x each tiling's demand): a
+     request and a depth-sliced request, each frame bitwise phase 3's tile-32
+     frame; the forward kernel bitwise its plain version, the backward and
+     both carry kernels (first slice) against theirs, each timed with both
+     bounds; the feature gradient with the exact pair reduction within the
+     backward tolerance of tile 32's; at tile 64 a one-step ``fit``,
+     unsliced and sliced, its loss bitwise tile 32's. Then phase 2's frame
+     at tiles 4, 12, 20, 40 and 64 by pair blocks 8, 128 and 2048, early
+     stop 0 and 1e-4: all four kernels against their plain versions (the
+     carry forms on every depth slice), each twice bitwise.
 
 A kernel's bound counts the work its inputs need. ``bound_ms`` charges the
 gate (and its expf) only at the walked pair-pixels inside each pair's
@@ -107,8 +118,9 @@ through its own helpers and ``gsplat_tpu_torch/utils/video.py`` and does not
 invoke it.
 
 It then prints ``nvidia-smi``'s name/power-limit line, the ``kernels`` JSON
-line (each kernel's launches on the main path and in phases 9, 10 and 11,
-the last summed over every rank) and,
+line (each kernel's launches on the main path and in phases 9, 10, 11 and
+12, phase 11's summed over every rank, and its times and bounds at phase
+12's tilings) and,
 last, ``{"ok": true, "device": {...}}``. Any failed check raises,
 so the script exits non-zero and prints no result; it also refuses to run
 without a CUDA device or without the ``gsplat_tpu_torch`` package beside it.
@@ -117,7 +129,6 @@ It imports neither JAX nor the JAX package.
 
 from __future__ import annotations
 
-import contextlib
 import json
 import logging
 import math
@@ -190,6 +201,14 @@ MESH_POSES = [("bench", 0.0), ("yaw+0.05", 0.05), ("yaw-0.05", -0.05), ("yaw+0.1
 MESH_PAD = (200, 150)
 MESH_FIT_STEPS = 6
 MESH_TIMEOUT_S = 600  # each collective's limit, and the gloo world's from spawn to join
+# Tilings (phase 12): the headline at tiles 16 and 64 beside phase 3's 32,
+# its depth-sliced path at 2^17 pairs a slice; phase 2's scene and frame at
+# every tile and pair block below.
+TILING_FULL = (16, 64)
+TILING_SLICE = 1 << 17
+TILING_SMALL_N, TILING_SMALL_FRAME = 20_000, (256, 192)
+TILING_SMALL_TILES = (4, 12, 20, 40, 64)
+TILING_SMALL_BLOCKS = (8, 128, 2048)
 
 
 def emit(obj) -> None:
@@ -222,6 +241,24 @@ def ptxas_resources(lines) -> dict:
 
     return {"registers": first(r"Used (\d+) registers"), "spill_stores": first(r"(\d+) bytes spill stores"),
             "spill_loads": first(r"(\d+) bytes spill loads")}
+
+
+def ptxas_by_kernel(log: str) -> dict:
+    """:func:`ptxas_resources` of each kernel entry in a ``-Xptxas -v``
+    report, keyed by its template arguments: the warp block ``FXxFY``, and
+    ``split`` where pair blocks are staged in several sub-batches."""
+    import re
+
+    entries = {}
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            args = re.search(r"ILi(\d+)ELi(\d+)ELb(\d)E", m.group(1))
+            name = f"{args.group(1)}x{args.group(2)}{' split' if args.group(3) == '1' else ''}" if args else m.group(1)
+            entries[name] = []
+        elif entries:
+            entries[name].append(line)
+    return {name: ptxas_resources(lines) for name, lines in entries.items()}
 
 
 def build_scene(n: int, scale_shift: float, device):
@@ -505,8 +542,8 @@ def sliced_records(model, camera, cfg):
 def carry_chain(feat, rec, n_tiles_x, cfg, width, height, g_color, g_trans) -> dict:
     """Walk the recorded slices through both carry kernels and their plain
     versions, each from the kernel chain's state before the slice: the
-    forward's colour and T at rtol 1e-5 / atol 1e-6 with ``blocks_done``
-    equal to the kernel's and to the record; the backward's rows and
+    forward's colour and T bitwise, ``blocks_done`` equal to the plain
+    version's and to the record; the backward's rows and
     reduced ``d_feat`` by ``rows_error``, its T at rtol 1e-5 / atol 1e-6 and
     its S by ``rows_error``. Returns the largest errors and the chain's end."""
     import torch
@@ -523,8 +560,7 @@ def carry_chain(feat, rec, n_tiles_x, cfg, width, height, g_color, g_trans) -> d
         got = forward_tiles_carry(*args, *carry, n_tiles_x, cfg, width, height)
         torch.cuda.synchronize()
         want = forward_tiles_plain(*args, n_tiles_x, cfg, width, height, carry=carry)
-        torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-6)
-        torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-6)
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), f"slice {k} forward bitwise")
         check(torch.equal(got[2], want[2]) and torch.equal(got[2], rec.bdone[k]), f"slice {k} blocks_done")
         out["fwd_max_abs_err"] = max(out["fwd_max_abs_err"], float((got[0] - want[0]).abs().max()),
                                      float((got[1] - want[1]).abs().max()))
@@ -1027,36 +1063,6 @@ def cli_phase(dev, t_main: float, root: str):
     return out, total
 
 
-@contextlib.contextmanager
-def exact_pair_reduction():
-    """The backward's pair-to-gaussian reduction (``reduce_pair_grads`` in
-    ``kernels/raster_bwd.py``: an f32 cumsum over every pair in gaussian
-    order, differenced at the segment ends) taken in f64 and rounded to f32
-    once, so that each gaussian's feature gradient is the exact sum of its
-    pairs' rows, whatever pairs lie around it. The f32 reduction's error in
-    a gaussian's sum is set by the cumsum's magnitude at its segment, which
-    depends on the other pairs that share the cumsum: a tile shard reduces
-    its own pairs, the single device all of them. Phase 11 takes both
-    reductions to show that this is where the mesh's gradient parts from
-    the single device's. The kernels run as always."""
-    from gsplat_tpu_torch.kernels import raster, raster_bwd
-
-    f32 = raster_bwd.reduce_pair_grads
-
-    def f64(pair_grads, *args):
-        return f32(pair_grads.double(), *args).float()
-
-    raster.reduce_pair_grads = raster_bwd.reduce_pair_grads = f64
-    try:
-        yield
-    finally:
-        raster.reduce_pair_grads = raster_bwd.reduce_pair_grads = f32
-
-
-def _reduction(exact: bool):
-    return exact_pair_reduction() if exact else contextlib.nullcontext()
-
-
 def _digest(model) -> str:
     """A hash of every parameter's bytes (replicas must agree bitwise)."""
     import hashlib
@@ -1139,15 +1145,15 @@ def mesh_rank(rank: int, world: int, tmp: str, cfg_fields: dict, dense_capacity:
         target = torch.full((HEIGHT, WIDTH, 3), 0.25, device=dev)
         for name, mesh in meshes.items():
             batch = mesh.shape[P.DATA_AXIS]
-            step, init_state, prepare = P.make_parallel_train_step(mesh, WIDTH, HEIGHT, cfg,
-                                                                   gs.TrainConfig(ssim_weight=0.0))
-            targets = prepare(target.expand(batch, -1, -1, -1))
             for key, exact in ((name, False), (f"{name}_exact", True)):
+                step, init_state, prepare = P.make_parallel_train_step(
+                    mesh, WIDTH, HEIGHT, dataclasses.replace(cfg, exact_grad_reduction=exact),
+                    gs.TrainConfig(ssim_weight=0.0))
+                targets = prepare(target.expand(batch, -1, -1, -1))
                 m = _clone(model)
                 optimizer = init_state(m)
-                with _reduction(exact):
-                    metrics = counted(f"step_{key}", lambda: step(
-                        m, optimizer, gs.CameraArrays.stack([cams[0]] * batch), targets)[2])
+                metrics = counted(f"step_{key}", lambda: step(
+                    m, optimizer, gs.CameraArrays.stack([cams[0]] * batch), targets)[2])
                 out[f"step_{key}"] = {"loss": float(metrics["loss"]), "digest": _digest(m)}
                 if rank == 0:  # the means after the step and their gradient, summed over the world
                     torch.save((m.means.detach().cpu(), m.means.grad.cpu()), os.path.join(tmp, f"means_{key}.pt"))
@@ -1268,12 +1274,13 @@ def mesh_phase(cfg, frames, dense_capacity: int, dev, t_main: float, cli_root: s
             out["a_step_device_busy_ms"] = device_busy_ms(lambda: step(m, optimizer, batch, targets))
             # The SSIM-free step the gloo meshes are held to, with the f32
             # pair reduction and with the exact one.
-            step0, init0, _ = P.make_parallel_train_step(mesh, WIDTH, HEIGHT, cfg, gs.TrainConfig(ssim_weight=0.0))
             one = {}
             for exact in (False, True):
+                step0, init0, _ = P.make_parallel_train_step(
+                    mesh, WIDTH, HEIGHT, dataclasses.replace(cfg, exact_grad_reduction=exact),
+                    gs.TrainConfig(ssim_weight=0.0))
                 m0 = _clone(model)
-                with _reduction(exact):
-                    loss = float(step0(m0, init0(m0), batch, targets)[2]["loss"])
+                loss = float(step0(m0, init0(m0), batch, targets)[2]["loss"])
                 one[exact] = (loss, m0.means.detach().cpu(), m0.means.grad.cpu())
                 del m0
             del ref, m, trainer, optimizer, targets
@@ -1400,6 +1407,248 @@ def mesh_phase(cfg, frames, dense_capacity: int, dev, t_main: float, cli_root: s
     return out, total
 
 
+def frame_feature_grad(model, camera, cfg, w_img, w_trans):
+    """The gradient of ``sum(img * w_img) + sum(trans * w_trans)`` with
+    respect to one view's packed features, through ``rasterize_tiles`` and
+    the image assembly: one forward and one backward launch."""
+    import torch
+
+    from gsplat_tpu_torch.kernels.raster import rasterize_tiles
+    from gsplat_tpu_torch.render.tile_torch import tiles_to_image
+
+    with torch.no_grad():
+        args, bins, ntx = binned_inputs(model, camera, cfg)
+    feat = args[0].detach().requires_grad_(True)
+    w, h, ts = camera.width, camera.height, cfg.tile_size
+    color, trans = rasterize_tiles(feat, *args[1:], bins.gaussian_counts, ntx, cfg, w, h)
+    loss = (tiles_to_image(color, w, h, ts) * w_img).sum() + (tiles_to_image(trans, w, h, ts) * w_trans).sum()
+    return torch.autograd.grad(loss, [feat])[0]
+
+
+def first_slice_kernels(feat, rec, color, trans, n_tiles_x, cfg, width, height, seed: int) -> dict:
+    """Both carry kernels on the first depth slice of ``rec`` (from
+    :func:`sliced_records`): the forward from (0, 1) bitwise its plain
+    version and ``blocks_done`` the record's; the backward from the walk
+    state of the frame (``color``, ``trans`` and seeded cotangents), its
+    rows and S by ``rows_error``, its T at rtol 1e-5 / atol 1e-6; each timed
+    beside its plain version and bounded as in phase 8."""
+    import torch
+
+    from gsplat_tpu_torch.kernels.raster_bwd import backward_tiles_carry, backward_tiles_plain, walk_state, written_slots
+    from gsplat_tpu_torch.kernels.raster_fwd import forward_tiles_carry, forward_tiles_plain
+
+    tile_ids = torch.arange(len(rec.starts[0]), dtype=torch.int32, device=feat.device)
+    args0 = (feat, rec.ids[0], rec.starts[0], rec.countc[0], tile_ids)
+    zero = (torch.zeros_like(color), torch.ones_like(trans))
+    k_out = forward_tiles_carry(*args0, *zero, n_tiles_x, cfg, width, height)
+    torch.cuda.synchronize()
+    p_out = forward_tiles_plain(*args0, n_tiles_x, cfg, width, height, carry=zero)
+    what = f"tile {cfg.tile_size} first slice"
+    check(all(torch.equal(a, b) for a, b in zip(k_out, p_out)), f"{what}: forward carry bitwise its plain version")
+    check(torch.equal(k_out[2], rec.bdone[0]), f"{what}: blocks_done")
+    fwd_err = max(float((a - b).abs().max()) for a, b in zip(k_out[:2], p_out[:2]))
+    g_color, g_trans = random_cotangents(color, trans, seed=seed)
+    state = walk_state(color, trans, g_color, g_trans)
+    rows, s_out = backward_tiles_carry(*args0, state, g_color, n_tiles_x, cfg, rec.bdone[0])
+    torch.cuda.synchronize()
+    p_rows, p_state = backward_tiles_plain(*args0, None, None, g_color, None, n_tiles_x, cfg, rec.bdone[0], state)
+    out = {"first_slice_forward_max_abs_err": fwd_err,
+           "first_slice_bwd": {"rows": rows_error(rows, p_rows, f"{what} rows"),
+                               "S": rows_error(s_out[:, 0].reshape(-1, 1), p_state[:, 0].reshape(-1, 1), f"{what} S")}}
+    torch.testing.assert_close(s_out[:, 1], p_state[:, 1], rtol=1e-5, atol=1e-6)
+    out["forward_carry_ms"] = cuda_ms(lambda: forward_tiles_carry(*args0, *zero, n_tiles_x, cfg, width, height), 20)
+    out["forward_carry_plain_ms"] = cuda_ms(
+        lambda: forward_tiles_plain(*args0, n_tiles_x, cfg, width, height, carry=zero), 1)
+    out["backward_carry_ms"] = cuda_ms(
+        lambda: backward_tiles_carry(*args0, state, g_color, n_tiles_x, cfg, rec.bdone[0]), 20)
+    out["backward_carry_plain_ms"] = cuda_ms(lambda: backward_tiles_plain(
+        *args0, None, None, g_color, None, n_tiles_x, cfg, rec.bdone[0], state), 1)
+    # The bytes of phase 8's bound: the rows of the gaussians the walked
+    # pairs name, the pair ids, four words per tile, per pixel the state in
+    # and out, and the backward's [P, 9] rows.
+    walked = written_slots(rec.starts[0], rec.bdone[0], int(rec.bdone[0].sum()), cfg.pair_block)
+    common = int(torch.unique(rec.ids[0][walked]).numel()) * 64 + rec.ids[0].numel() * 4 + len(tile_ids) * 16
+    counts = pair_pixels(args0, n_tiles_x, cfg, rec.bdone[0])
+    pixels = color.numel() // 3
+    out["forward_carry_bound"] = compositor_bound(counts, common + pixels * 32, backward=False)
+    out["backward_carry_bound"] = compositor_bound(counts, common + pixels * 28 + rec.ids[0].numel() * 36,
+                                                   backward=True)
+    return out
+
+
+def tilings_phase(cfg, frame32, dev, t_main: float):
+    """Phase 12: the four kernels at tilings other than the headline's.
+    (a) The headline model of phase 3 at each tile of ``TILING_FULL``, each
+    tiling's capacity 1.5x its own demand: a render request, bitwise the
+    phase-3 tile-32 ``frame32`` (early stop off: every pixel composites the
+    same gaussians in the same order) and bitwise the forward kernel's plain
+    version; the backward kernel against its plain version; a depth-sliced
+    request at ``TILING_SLICE`` pairs a slice, bitwise the same frame, and
+    both carry kernels on its first slice; every kernel timed with its
+    bounds; the feature gradient of a seeded image-space loss with the exact
+    pair reduction within the backward tolerance of tile 32's; at tile 64 a
+    one-step ``Trainer.fit``, unsliced and sliced, its loss bitwise tile
+    32's. (b) Phase 2's scene and frame at every tile of
+    ``TILING_SMALL_TILES`` and pair block of ``TILING_SMALL_BLOCKS``, early
+    stop 0 and 1e-4: the forward kernel bitwise its plain version, the
+    backward within ``rows_error``, each twice bitwise, and both carry
+    kernels on every depth slice (``carry_chain``). Returns (the phase's
+    record, each kernel's launches over the entry-point calls of (a), each
+    call counted from 0 just before it)."""
+    import dataclasses
+
+    import torch
+
+    import gsplat_tpu_torch as gs
+    from gsplat_tpu_torch.kernels.raster_bwd import backward_tiles, backward_tiles_carry, backward_tiles_plain
+    from gsplat_tpu_torch.kernels.raster_fwd import forward_tiles, forward_tiles_carry, forward_tiles_plain
+    from gsplat_tpu_torch.render.tile_torch import tiles_to_image
+
+    kernels = {"raster_fwd": forward_tiles, "raster_bwd": backward_tiles, "raster_fwd_carry": forward_tiles_carry,
+               "raster_bwd_carry": backward_tiles_carry}
+    launches = dict.fromkeys(kernels, 0)
+
+    def entry(fn):
+        """One call of the port's entry points, every count set to 0 just
+        before it; returns (its result, the launches it made)."""
+        for k in kernels.values():
+            k.launches = 0
+        result = fn()
+        torch.cuda.synchronize()
+        made = {name: k.launches for name, k in kernels.items()}
+        for name, n in made.items():
+            launches[name] += n
+        return result, made
+
+    def only(made, **want):
+        return made == {**dict.fromkeys(kernels, 0), **want}
+
+    out = {"full": {}, "small": {}}
+    model = build_scene(NUM_GAUSSIANS, 0.0, dev)
+    cam0 = bench_camera(WIDTH, HEIGHT)
+    cams = gs.CameraArrays.from_params(cam0, device=dev)
+    target = torch.full((HEIGHT, WIDTH, 3), 0.25, device=dev)
+    train = gs.TrainConfig(ssim_weight=0.2, steps=1, log_every=1)
+    w_img, w_trans = random_cotangents(*frame32, seed=6)
+    exact32 = frame_feature_grad(model, cam0, dataclasses.replace(cfg, exact_grad_reduction=True), w_img, w_trans)
+    loss32 = gs.Trainer(raster=cfg, train=train, show_progress=False).fit(_clone(model), [(cam0, target)])[1][0]["loss"]
+    for ts in TILING_FULL:
+        with torch.inference_mode():
+            demand = int(gs.binning_stats(model, cams, WIDTH, HEIGHT, dataclasses.replace(cfg, tile_size=ts))["pair_demand"])
+            tcfg = dataclasses.replace(cfg, tile_size=ts, max_pairs=max(int(demand * 1.5) // 128 * 128, CAPACITY_FLOOR))
+            rec = {"pair_demand": demand, "capacity": tcfg.max_pairs}
+            check(not bool(gs.binning_stats(model, cams, WIDTH, HEIGHT, tcfg)["overflowed"]), f"tile {ts}: no overflow")
+            (img, trans), made = entry(lambda: gs.render(model, cam0, tcfg))
+            check(only(made, raster_fwd=1), f"tile {ts} request launches: {made}")
+            check(torch.equal(img, frame32[0]) and torch.equal(trans, frame32[1]),
+                  f"tile {ts}: the frame is bitwise phase 3's tile-32 frame")
+            args, bins, ntx = binned_inputs(model, cam0, tcfg)
+            k_out = forward_tiles(*args, ntx, tcfg, WIDTH, HEIGHT)
+            torch.cuda.synchronize()
+            p_out = forward_tiles_plain(*args, ntx, tcfg, WIDTH, HEIGHT)
+            check(all(torch.equal(a, b) for a, b in zip(k_out, p_out)), f"tile {ts}: forward bitwise its plain version")
+            check(torch.equal(tiles_to_image(k_out[0], WIDTH, HEIGHT, ts), img), f"tile {ts}: the request's frame")
+            counts = pair_pixels(args, ntx, tcfg)
+            fwd_bytes = sum(t.numel() * t.element_size() for t in args) + len(args[4]) * (ts ** 2 * 16 + 4)
+            rec["forward"] = {"ms": cuda_ms(lambda: forward_tiles(*args, ntx, tcfg, WIDTH, HEIGHT), 20),
+                              "plain_ms": cuda_ms(lambda: forward_tiles_plain(*args, ntx, tcfg, WIDTH, HEIGHT), 1),
+                              "bound": compositor_bound(counts, fwd_bytes, backward=False)}
+            color, tr, done = k_out
+            outs = (color, tr, *random_cotangents(color, tr, seed=3))
+            rows = backward_tiles(*args, *outs, ntx, tcfg, done)
+            again = backward_tiles(*args, *outs, ntx, tcfg, done)
+            torch.cuda.synchronize()
+            p_rows = backward_tiles_plain(*args, *outs, ntx, tcfg, done)
+            check(torch.equal(rows, again), f"tile {ts}: two backward runs bitwise equal")
+            bwd_bytes = sum(t.numel() * t.element_size() for t in (*args, *outs, done)) + args[1].numel() * 36
+            rec["backward"] = {"rows": rows_error(rows, p_rows, f"tile {ts} rows"),
+                               "ms": cuda_ms(lambda: backward_tiles(*args, *outs, ntx, tcfg, done), 20),
+                               "plain_ms": cuda_ms(lambda: backward_tiles_plain(*args, *outs, ntx, tcfg, done), 1),
+                               "bound": compositor_bound(counts, bwd_bytes, backward=True)}
+            del args, bins, k_out, p_out, color, tr, done, outs, rows, again, p_rows
+            scfg = dataclasses.replace(tcfg, slice_pairs=TILING_SLICE)
+            (s_img, s_trans), made = entry(lambda: gs.render(model, cam0, scfg))
+            check(made["raster_fwd_carry"] >= 2 and only(made, raster_fwd_carry=made["raster_fwd_carry"]),
+                  f"tile {ts} sliced request launches: {made}")
+            check(torch.equal(s_img, frame32[0]) and torch.equal(s_trans, frame32[1]),
+                  f"tile {ts}: the sliced frame is bitwise the tile-32 frame")
+            feat, s_color, s_tr, srec = sliced_records(model, cam0, scfg)
+            rec["sliced"] = {"k_exec": len(srec.ids), "request_launches": made["raster_fwd_carry"],
+                             **first_slice_kernels(feat, srec, s_color, s_tr, ntx, scfg, WIDTH, HEIGHT, seed=5)}
+            del feat, s_color, s_tr, srec
+        grad = frame_feature_grad(model, cam0, dataclasses.replace(tcfg, exact_grad_reduction=True), w_img, w_trans)
+        rec["exact_d_feat_vs_tile32"] = rows_error(grad, exact32, f"tile {ts} d_feat against tile 32's (exact reduction)")
+        if ts == 64:
+            (_, history), made = entry(lambda: gs.Trainer(raster=tcfg, train=train, show_progress=False).fit(
+                _clone(model), [(cam0, target)]))
+            check(only(made, raster_fwd=1, raster_bwd=1), f"tile {ts} fit step launches: {made}")
+            check(history[0]["loss"] == loss32, f"tile {ts} step loss {history[0]['loss']} is tile 32's {loss32}")
+            (_, s_history), made = entry(lambda: gs.Trainer(raster=scfg, train=train, show_progress=False).fit(
+                _clone(model), [(cam0, target)]))
+            check(made["raster_fwd_carry"] == made["raster_bwd_carry"] >= 2
+                  and only(made, raster_fwd_carry=made["raster_fwd_carry"], raster_bwd_carry=made["raster_bwd_carry"]),
+                  f"tile {ts} sliced fit step launches: {made}")
+            check(s_history[0]["loss"] == loss32, f"tile {ts} sliced step loss is tile 32's")
+            rec.update({"step_loss": history[0]["loss"], "sliced_step_launches": made})
+        out["full"][str(ts)] = rec
+        torch.cuda.empty_cache()
+    out["tile32_step_loss"] = loss32
+    del model, exact32
+    torch.cuda.empty_cache()
+
+    small = build_scene(TILING_SMALL_N, 2.5, dev)
+    sw, sh = TILING_SMALL_FRAME
+    cam_s = bench_camera(sw, sh)
+    for ts in TILING_SMALL_TILES:
+        ntx = -(-sw // ts)
+        n_tiles = ntx * -(-sh // ts)
+        for blk in TILING_SMALL_BLOCKS:
+            base = gs.RasterConfig(tile_size=ts, chunk_size=8, pair_block=blk, max_pairs=1 << 23)
+            with torch.inference_mode():
+                args, bins, _ = binned_inputs(small, cam_s, base)
+            demand = int(bins.pair_demand)
+            check(demand <= base.max_pairs, f"tile {ts} / block {blk}: capacity")
+            # A few depth slices: a third of the demand, a pair_block
+            # multiple, at least the tile count.
+            slice_pairs = -(-max(demand // 3, n_tiles) // blk) * blk
+            rec = {"pair_demand": demand, "slice_pairs": slice_pairs}
+            for stop in (0.0, 1e-4):
+                scfg = dataclasses.replace(base, early_stop_transmittance=stop)
+                what = f"tile {ts} / block {blk} / early stop {stop}"
+                with torch.inference_mode():
+                    got = forward_tiles(*args, ntx, scfg, sw, sh)
+                    again = forward_tiles(*args, ntx, scfg, sw, sh)
+                    torch.cuda.synchronize()
+                    want = forward_tiles_plain(*args, ntx, scfg, sw, sh)
+                    check(all(torch.equal(g, w) and torch.equal(g, a) for g, a, w in zip(got, again, want)),
+                          f"{what}: forward twice bitwise its plain version")
+                    outs = (got[0], got[1], *random_cotangents(got[0], got[1], seed=7))
+                    rows = backward_tiles(*args, *outs, ntx, scfg, got[2])
+                    rows2 = backward_tiles(*args, *outs, ntx, scfg, got[2])
+                    torch.cuda.synchronize()
+                    p_rows = backward_tiles_plain(*args, *outs, ntx, scfg, got[2])
+                    check(torch.equal(rows, rows2), f"{what}: two backward runs bitwise equal")
+                    stop_rec = {"tiles_stopped_early": int((got[2] < -(-args[3] // blk)).sum()),
+                                "rows_max_abs_err": rows_error(rows, p_rows, f"{what} rows")["max_abs_err"]}
+                    sl = dataclasses.replace(scfg, slice_pairs=slice_pairs)
+                    feat, color, trans, srec = sliced_records(small, cam_s, sl)
+                    chain = carry_chain(feat, srec, ntx, sl, sw, sh, *random_cotangents(color, trans, seed=8))
+                    check(torch.equal(chain.pop("color"), color) and torch.equal(chain.pop("trans"), trans),
+                          f"{what}: the checked chain ends at the sliced forward's frame")
+                    if stop == 0.0:
+                        check(torch.equal(color, got[0]) and torch.equal(trans, got[1]),
+                              f"{what}: the sliced frame is bitwise the single pass's")
+                    stop_rec.update({"k_exec": len(srec.ids), **chain})
+                rec[f"stop_{stop}"] = stop_rec
+                del got, again, want, outs, rows, rows2, p_rows, feat, color, trans, srec
+            out["small"][f"{ts}x{blk}"] = rec
+            del args, bins
+    check(any(rec["stop_0.0001"]["tiles_stopped_early"] > 0 for rec in out["small"].values()),
+          "the small sweep exercises the early stop")
+    out["elapsed_s"] = time.perf_counter() - t_main  # since main() began, the build included
+    return out, launches
+
+
 def main() -> int:
     t_main = time.perf_counter()
     import torch
@@ -1419,7 +1668,7 @@ def main() -> int:
     import gsplat_tpu_torch as gs
     from gsplat_tpu_torch.kernels import build
     from gsplat_tpu_torch.kernels.raster_bwd import (
-        backward_tiles, backward_tiles_carry, backward_tiles_plain, reduce_pair_grads, walk_state, written_slots,
+        backward_tiles, backward_tiles_carry, backward_tiles_plain, reduce_pair_grads,
     )
     from gsplat_tpu_torch.kernels.raster_fwd import forward_tiles, forward_tiles_carry, forward_tiles_plain
     from gsplat_tpu_torch.render.tile_torch import tiles_to_image
@@ -1431,12 +1680,13 @@ def main() -> int:
     t0 = time.perf_counter()
     built = build.build()
     build_s = time.perf_counter() - t0
-    ptxas = {name: [ln.strip() for ln in build.build_log(name).splitlines() if "registers" in ln or "spill" in ln]
+    ptxas = {name: [ln.strip() for ln in build.build_log(name).splitlines()
+                    if "registers" in ln or "spill" in ln or "entry function" in ln]
              for name in build.SOURCES}
     emit({
         "phase": "device", "nvidia_smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
         "device": torch.cuda.get_device_name(0), "build_s": build_s, "compiled": sorted(built),
-        "ptxas": ptxas, "resources": {name: ptxas_resources(lines) for name, lines in ptxas.items()},
+        "ptxas": ptxas, "resources": {name: ptxas_by_kernel(build.build_log(name)) for name in build.SOURCES},
     })
 
     # -- phase 2: kernel vs plain, small; render vs oracle, tiny --
@@ -1740,44 +1990,7 @@ def main() -> int:
         diff = float((frames[0] - single[0]).abs().max())
         check(diff <= 1e-4, f"sliced frame within 1e-4 of the single-sort frame: {diff}")
         real["sliced_vs_single_sort_max_abs_diff"] = diff
-        ntx = -(-WIDTH // 32)
-        tile_ids = torch.arange(len(rec.starts[0]), dtype=torch.int32, device=dev)
-        args0 = (feat, rec.ids[0], rec.starts[0], rec.countc[0], tile_ids)
-        zero = (torch.zeros_like(color), torch.ones_like(trans))
-        k_out = forward_tiles_carry(*args0, *zero, ntx, rcfg, WIDTH, HEIGHT)
-        torch.cuda.synchronize()
-        p_out = forward_tiles_plain(*args0, ntx, rcfg, WIDTH, HEIGHT, carry=zero)
-        err = tiles_to_image(torch.maximum((k_out[0] - p_out[0]).abs().amax(-1), (k_out[1] - p_out[1]).abs()),
-                             WIDTH, HEIGHT, 32)
-        check(int((err <= 1e-4).sum()) >= 0.99999 * err.numel() and float(err.max()) <= 5e-3,
-              f"first slice forward carry: max error {float(err.max())}")
-        check(torch.equal(k_out[2], p_out[2]) and torch.equal(k_out[2], rec.bdone[0]), "first slice blocks_done")
-        fwd_carry_err = float(err.max())
-        g_color, g_trans = random_cotangents(color, trans, seed=5)
-        state = walk_state(color, trans, g_color, g_trans)
-        rows, s_out = backward_tiles_carry(*args0, state, g_color, ntx, rcfg, rec.bdone[0])
-        torch.cuda.synchronize()
-        p_rows, p_state = backward_tiles_plain(*args0, None, None, g_color, None, ntx, rcfg, rec.bdone[0], state)
-        real["first_slice_bwd"] = {"rows": rows_error(rows, p_rows, "first slice rows"),
-                                   "S": rows_error(s_out[:, 0].reshape(-1, 1), p_state[:, 0].reshape(-1, 1), "first slice S")}
-        torch.testing.assert_close(s_out[:, 1], p_state[:, 1], rtol=1e-5, atol=1e-6)
-        fwd_carry_ms = cuda_ms(lambda: forward_tiles_carry(*args0, *zero, ntx, rcfg, WIDTH, HEIGHT), 20)
-        fwd_carry_plain_ms = cuda_ms(lambda: forward_tiles_plain(*args0, ntx, rcfg, WIDTH, HEIGHT, carry=zero), 3)
-        bwd_carry_ms = cuda_ms(lambda: backward_tiles_carry(*args0, state, g_color, ntx, rcfg, rec.bdone[0]), 20)
-        bwd_carry_plain_ms = cuda_ms(lambda: backward_tiles_plain(
-            *args0, None, None, g_color, None, ntx, rcfg, rec.bdone[0], state), 3)
-        # Bytes the first slice needs: the feature rows of the gaussians its
-        # walked pairs name, its pair ids, four words per tile (start,
-        # count, id, blocks_done), and per pixel the forward's colour and T
-        # in and out (32 B) or the backward's state in and out and colour
-        # cotangent (28 B); the backward also writes its [P, 9] rows.
-        walked = written_slots(rec.starts[0], rec.bdone[0], composited[0], 128)
-        common = (int(torch.unique(rec.ids[0][walked]).numel()) * 64 + rec.ids[0].numel() * 4
-                  + len(tile_ids) * 16)
-        counts0 = pair_pixels(args0, ntx, rcfg, rec.bdone[0])
-        fwd_carry_bound = compositor_bound(counts0, common + color.numel() // 3 * 32, backward=False)
-        bwd_carry_bound = compositor_bound(counts0, common + color.numel() // 3 * 28 + rec.ids[0].numel() * 36,
-                                           backward=True)
+        real.update(first_slice_kernels(feat, rec, color, trans, -(-WIDTH // 32), rcfg, WIDTH, HEIGHT, seed=5))
         real["sliced_request"] = {
             "stage_ms": stage_breakdown(lambda: gs.render(model, cam0, rcfg)),
             "request_ms": cuda_ms(lambda: gs.render(model, cam0, rcfg), 5),
@@ -1788,11 +2001,8 @@ def main() -> int:
             "request_ms": cuda_ms(lambda: gs.render(model, cam0, ss_cfg), 5),
             "device_busy_ms": device_busy_ms(lambda: gs.render(model, cam0, ss_cfg)),
             "host_syncs": host_syncs(lambda: gs.render(model, cam0, ss_cfg))}
-        del feat, color, trans, rec, bins, single, k_out, p_out, err, state, rows, s_out, p_rows, p_state, frames
-    real.update({"requests": requests, "forward_carry_ms": fwd_carry_ms, "forward_carry_plain_ms": fwd_carry_plain_ms,
-                 "forward_carry_bound": fwd_carry_bound, "backward_carry_ms": bwd_carry_ms,
-                 "backward_carry_plain_ms": bwd_carry_plain_ms, "backward_carry_bound": bwd_carry_bound,
-                 "first_slice_forward_max_abs_err": fwd_carry_err})
+        del feat, color, trans, rec, bins, single, frames
+    real["requests"] = requests
 
     target = torch.full((HEIGHT, WIDTH, 3), 0.25, device=dev)
     trainer = gs.Trainer(raster=rcfg, train=gs.TrainConfig(ssim_weight=0.2, steps=3, log_every=1), show_progress=False)
@@ -1852,10 +2062,24 @@ def main() -> int:
         mesh, mesh_launches = mesh_phase(cfg, served_frames, dense["capacity"], dev, t_main, cli_root)
         emit({"phase": "mesh", **mesh})
 
+    # -- phase 12: the kernels at other tilings --
+    tilings, tilings_launches = tilings_phase(cfg, served_frames[0], dev, t_main)
+    emit({"phase": "tilings", **tilings})
+
+    def at_tiles(kernel):
+        """A kernel's times and bounds at each tiling of phase 12 (a)."""
+        rows = {}
+        for ts, rec in tilings["full"].items():
+            part, key = (rec[kernel], "") if kernel in ("forward", "backward") else (rec["sliced"], f"{kernel}_")
+            ms, bound = part[f"{key}ms"], part[f"{key}bound"]
+            rows[ts] = {"ms": ms, "plain_ms": part[f"{key}plain_ms"], **bound_fields(bound, ms)}
+        return rows
+
     print(smi, flush=True)
     emit({"kernels": [
         {
-            "name": "raster_fwd", "route": "cuda", "source": "gsplat_tpu_torch/csrc/raster_fwd.cu",
+            "name": "raster_fwd", "route": "cuda", "tilings_launches": tilings_launches["raster_fwd"],
+            "tilings": at_tiles("forward"), "source": "gsplat_tpu_torch/csrc/raster_fwd.cu",
             "replaces": "gsplat_tpu/kernels/raster_fwd.py:68", "launches": launches,
             "densify_fit_launches": dense_launches["raster_fwd"], "render_depth_launches": depth_launches,
             "cli_launches": cli_launches["raster_fwd"], "mesh_launches": mesh_launches["raster_fwd"],
@@ -1863,7 +2087,8 @@ def main() -> int:
             **bound_fields(fwd_bound, kernel_ms),
         },
         {
-            "name": "raster_bwd", "route": "cuda", "source": "gsplat_tpu_torch/csrc/raster_bwd.cu",
+            "name": "raster_bwd", "route": "cuda", "tilings_launches": tilings_launches["raster_bwd"],
+            "tilings": at_tiles("backward"), "source": "gsplat_tpu_torch/csrc/raster_bwd.cu",
             "replaces": "gsplat_tpu/kernels/raster_bwd.py:45", "launches": train_launches["raster_bwd"],
             "densify_fit_launches": dense_launches["raster_bwd"], "cli_launches": cli_launches["raster_bwd"],
             "mesh_launches": mesh_launches["raster_bwd"],
@@ -1871,18 +2096,22 @@ def main() -> int:
             **bound_fields(bwd_bound, bwd_ms),
         },
         {
-            "name": "raster_fwd_carry", "route": "cuda", "source": "gsplat_tpu_torch/csrc/raster_fwd.cu",
+            "name": "raster_fwd_carry", "route": "cuda", "tilings_launches": tilings_launches["raster_fwd_carry"],
+            "tilings": at_tiles("forward_carry"), "source": "gsplat_tpu_torch/csrc/raster_fwd.cu",
             "replaces": "gsplat_tpu/kernels/raster_fwd.py:266", "launches": fwd_carry_launches,
             "cli_launches": cli_launches["raster_fwd_carry"],
-            "max_abs_err": fwd_carry_err, "ms": fwd_carry_ms, "plain_ms": fwd_carry_plain_ms, "library_ms": None,
-            **bound_fields(fwd_carry_bound, fwd_carry_ms),
+            "max_abs_err": real["first_slice_forward_max_abs_err"], "ms": real["forward_carry_ms"],
+            "plain_ms": real["forward_carry_plain_ms"], "library_ms": None,
+            **bound_fields(real["forward_carry_bound"], real["forward_carry_ms"]),
         },
         {
-            "name": "raster_bwd_carry", "route": "cuda", "source": "gsplat_tpu_torch/csrc/raster_bwd.cu",
+            "name": "raster_bwd_carry", "route": "cuda", "tilings_launches": tilings_launches["raster_bwd_carry"],
+            "tilings": at_tiles("backward_carry"), "source": "gsplat_tpu_torch/csrc/raster_bwd.cu",
             "replaces": "gsplat_tpu/kernels/raster_bwd.py:339", "launches": real_launches["raster_bwd_carry"],
             "cli_launches": cli_launches["raster_bwd_carry"],
-            "max_abs_err": real["first_slice_bwd"]["rows"]["max_abs_err"], "ms": bwd_carry_ms,
-            "plain_ms": bwd_carry_plain_ms, "library_ms": None, **bound_fields(bwd_carry_bound, bwd_carry_ms),
+            "max_abs_err": real["first_slice_bwd"]["rows"]["max_abs_err"], "ms": real["backward_carry_ms"],
+            "plain_ms": real["backward_carry_plain_ms"], "library_ms": None,
+            **bound_fields(real["backward_carry_bound"], real["backward_carry_ms"]),
         },
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

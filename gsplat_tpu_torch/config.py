@@ -34,13 +34,15 @@ class RasterConfig:
     """Rasterization settings.
 
     Attributes:
-      tile_size: pixel tile edge; one CUDA thread block of
-        ``tile_size**2`` threads composites one tile.
+      tile_size: pixel tile edge; one CUDA thread block composites one
+        tile, each thread owning one pixel (two or four above 1024 pixels).
+        The kernels take 1 to 64; the plain versions any positive size.
       chunk_size: pairs whose alphas the plain version evaluates at once.
-      pair_block: pairs per batch the kernel stages in shared memory, and
-        the alignment of every tile's pair segment (binning pads segments
-        to a multiple of it). The early-stop test runs once per batch.
-        Must be a multiple of ``chunk_size``.
+      pair_block: pairs per block of the early-stop test (it runs once
+        per block), and the alignment of every tile's pair segment (binning
+        pads segments to a multiple of it). The kernels stage a block in
+        shared memory in sub-batches of at most 256 rows. Must be a
+        multiple of ``chunk_size``.
       max_pairs: capacity of the (tile, gaussian) pair buffer. Overflow
         drops the deepest whole gaussians and is reported by
         ``binning_stats``.
@@ -50,6 +52,12 @@ class RasterConfig:
         The reference has no early stop, so parity runs use 0.0.
       strict_parity: skip gaussians where *any* conic coefficient is zero,
         as the reference does (rasterize.py:441).
+      exact_grad_reduction: the unsliced backward sums each gaussian's
+        per-pair gradient rows exactly (an f64 sorted cumsum differenced at
+        the segment ends, rounded to f32 once), ahead of any compaction, as
+        the JAX package's exact segment sum; deterministic, so bitwise
+        repeatable on the card. False: the f32 sorted cumsum (about 1e-5 of
+        the gradient scale). The sliced path ignores it, as JAX's does.
       reduce_pairs: pair capacity of the compacted gradient reduction (0 =
         off). With early stop the forward composites only a few percent of
         the pair blocks at real-scene density; the backward then gathers
@@ -71,6 +79,7 @@ class RasterConfig:
     sh_degree: int = 3
     early_stop_transmittance: float = 0.0
     strict_parity: bool = True
+    exact_grad_reduction: bool = False
     reduce_pairs: int = 0
     slice_pairs: int = 0
 

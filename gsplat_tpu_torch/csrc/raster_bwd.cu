@@ -40,24 +40,29 @@
 // gate) that is some 2.3e10 FP32 operations and 1.1e9 SFU operations for
 // about 0.2 GB moved, if every pair is evaluated at every pixel.
 //
-// What the design does about it: one thread block per tile and one thread
-// per pixel, as in the forward, so the walk is a sequential loop in
-// registers (the TPU kernel needed cumprod/cumsum doubling scans). As in the
-// forward, each warp owns an 8x4 pixel rect and walks only the pairs whose
-// alpha-bound rect meets it, and batches of pair rows are gathered with
-// cp.async two batches ahead (raster_common.cuh). The per-pair sums over the
-// tile's pixels are deterministic and use no atomics: a warp that walks a
-// pair sums its 32 pixels' nine terms with a transposing shuffle reduction
-// (each step halves the values a lane carries: 14 shuffles where nine xor
-// trees take 45) and writes them to its slot of red[warp][pair][9], or
-// zeros when none of its pixels passes the pair's gate; after each round of
-// pairs one thread per (pair, column) adds the slots of exactly the warps
-// that walked the pair, in warp order, and writes the pair's row. Two block
-// barriers per round. A round is the whole batch (measured faster than
-// rounds of 32 pairs) unless the batch's slots would not fit in shared
-// memory, as at tile 32 from pair_block 171 on; then it is 32 pairs. Rows
-// past a tile's blocks_done, and rows of alignment pads, are never written:
-// the caller zero-fills the output.
+// What the design does about it: one thread block per tile, and each
+// thread owns one pixel of it (two or four in tiles of more than 1024
+// pixels), as in the forward, so the walk is a sequential loop in registers
+// (the TPU kernel needed cumprod/cumsum doubling scans). As in the forward,
+// each warp walks its 8x4 pixel rects, in each only the pairs whose
+// alpha-bound rect meets it, and sub-batches of pair rows are gathered with
+// cp.async two ahead (raster_common.cuh). The per-pair sums over the tile's
+// pixels are deterministic and use no atomics: a thread first adds its own
+// pixels' nine terms in a fixed order (the rects in order; one pixel needs
+// no addition), a warp that walks a pair then sums its 32 lanes with a
+// transposing shuffle reduction (each step halves the values a lane
+// carries: 14 shuffles where nine xor trees take 45) and writes them to its
+// slot of red[warp][pair][9], or zeros when none of its pixels passes the
+// pair's gate; after each round of pairs one thread per (pair, column) adds
+// the slots of exactly the warps that walked the pair, in warp order, and
+// writes the pair's row. So the shared memory of the sums is that of at
+// most 32 warps whatever the tile. Lanes past the tile's edge own no pixel:
+// their cotangents and S are 0, so every term they add is an exact zero.
+// Two block barriers per round. A round is the whole sub-batch (measured
+// faster than rounds of 32 pairs) unless its warp slots would not fit in
+// shared memory, as at tile 32 from pair_block 171 on; then it is 32 pairs.
+// Rows past a tile's blocks_done, and rows of alignment pads, are never
+// written: the caller zero-fills the output.
 
 #include <cuda_runtime.h>
 
@@ -69,12 +74,13 @@ using namespace gsplat;
 
 constexpr int kGrad = 9;  // gradient columns per pair row (FEAT_* 0-8)
 
-// Pairs per round of the block sums: the whole batch where its warp slots
-// [warps][pair_block][9] fit in shared memory beside the staging, else 32
+// Pairs per round of the block sums: the whole sub-batch where its warp
+// slots [warps][sub][9] fit in shared memory beside the staging, else 32
 // (kernels/raster_bwd.py _sum_round mirrors it).
 int sum_round(int warps, int pair_block) {
-  const size_t whole = staging_bytes(pair_block) + (size_t)warps * pair_block * kGrad * sizeof(float);
-  return whole <= kMaxSmem ? pair_block : 32;
+  const int sub = sub_rows(pair_block);
+  const size_t whole = staging_bytes(pair_block) + (size_t)warps * sub * kGrad * sizeof(float);
+  return whole <= kMaxSmem ? sub : 32;
 }
 
 // Sums v[0..8] over the warp's 32 lanes. Values 0-7 by a transposing
@@ -117,6 +123,49 @@ __device__ __forceinline__ void warp_sum9(float v[kGrad], int lane, float* out) 
   if (lane == 0) out[8] = v[8];
 }
 
+// One step of a pixel's walk over a pair (the recurrence at the top of this
+// file): updates S and T and returns what the pixel's terms need.
+struct PixelStep {
+  PairEval e;
+  float w, d_raw, dd;
+};
+
+__device__ __forceinline__ PixelStep walk_pixel(const float* row, float px, float py, float g0, float g1, float g2,
+                                                float& S, float& T, float min_alpha, float max_alpha) {
+  PixelStep p;
+  p.e = eval_pair(row, px, py, min_alpha, max_alpha);
+  const float a = p.e.valid ? p.e.alpha : 0.0f;
+  const float tk = T;
+  p.w = __fmul_rn(a, tk);
+  const float u = __fadd_rn(__fadd_rn(__fmul_rn(row[R], g0), __fmul_rn(row[G], g1)), __fmul_rn(row[B], g2));
+  S = __fsub_rn(S, __fmul_rn(p.w, u));
+  const float om = __fsub_rn(1.0f, a);
+  const float d_a = p.e.valid ? __fsub_rn(__fmul_rn(u, tk), __fdiv_rn(S, om)) : 0.0f;
+  p.d_raw = p.e.raw < max_alpha ? d_a : 0.0f;
+  p.dd = __fmul_rn(p.d_raw, p.e.raw);
+  T = __fmul_rn(tk, om);
+  return p;
+}
+
+// The pixel's nine gradient terms (FEAT_* 0-8) of the pair, into v.
+__device__ __forceinline__ void pixel_terms(const PixelStep& p, const float* row, float g0, float g1, float g2,
+                                            float v[kGrad]) {
+  const float cx = row[CX], cy = row[CY], cxy = row[CXY];
+  const float dx = p.e.dx, dy = p.e.dy, dd = p.dd;
+  v[0] = __fmul_rn(dd, -__fadd_rn(__fmul_rn(cx, dx), __fmul_rn(cxy, dy)));
+  v[1] = __fmul_rn(dd, -__fadd_rn(__fmul_rn(cy, dy), __fmul_rn(cxy, dx)));
+  v[2] = __fmul_rn(dd, __fmul_rn(__fmul_rn(-0.5f, dx), dx));
+  v[3] = __fmul_rn(dd, __fmul_rn(__fmul_rn(-0.5f, dy), dy));
+  v[4] = __fmul_rn(dd, __fmul_rn(-dx, dy));
+  v[5] = __fmul_rn(p.d_raw, p.e.expd);
+  v[6] = __fmul_rn(p.w, g0);
+  v[7] = __fmul_rn(p.w, g1);
+  v[8] = __fmul_rn(p.w, g2);
+}
+
+// FX x FY: the rects of a warp (warp_layout in raster_common.cuh); kSplit:
+// pair blocks staged in several sub-batches (Staging).
+template <int FX, int FY, bool kSplit>
 __global__ void __launch_bounds__(1024) raster_bwd_kernel(
     const float* __restrict__ feat,          // [N+1, 16]; row N is zero
     const int* __restrict__ pair_gaussian,   // [P]
@@ -134,6 +183,7 @@ __global__ void __launch_bounds__(1024) raster_bwd_kernel(
     float* __restrict__ pair_grads,          // [P, 9], zero-filled
     float* __restrict__ carry_out)           // [T, 2, npix], or null
 {
+  constexpr int kSubs = FX * FY;
   extern __shared__ __align__(16) float smem[];
   float* red = smem + staging_bytes(pair_block) / sizeof(float);  // [warps][round_pairs][kGrad]
   const int t = blockIdx.x;
@@ -143,106 +193,141 @@ __global__ void __launch_bounds__(1024) raster_bwd_kernel(
   const int npix = tile_size * tile_size;
   const int start = tile_start[t];
   const int count = tile_count[t];
-  const TilePixel me = tile_pixel(tile_ids[t], n_tiles_x, tile_size);
-  const float px = me.px, py = me.py;
+  const TileGrid grid = tile_grid(tile_ids[t], n_tiles_x, tile_size);
+  const TilePixels<FX, FY> me = tile_pixels<FX, FY>(grid);
   const int nblocks = (count + pair_block - 1) / pair_block;
   const int walk = blocks_done ? min(blocks_done[t], nblocks) : nblocks;
 
-  const size_t p = (size_t)t * npix + me.pix;
-  const size_t q = (size_t)t * 2 * npix + me.pix;
-  const float g0 = g_color[p * 3 + 0], g1 = g_color[p * 3 + 1], g2 = g_color[p * 3 + 2];
-  float S, T;
-  if (carry_in) {
-    S = carry_in[q];
-    T = carry_in[q + npix];
-  } else {
-    S = __fadd_rn(
-        __fadd_rn(__fadd_rn(__fmul_rn(g0, color[p * 3 + 0]), __fmul_rn(g1, color[p * 3 + 1])),
-                  __fmul_rn(g2, color[p * 3 + 2])),
-        __fmul_rn(g_trans[p], trans[p]));
-    T = 1.0f;
+  const size_t base = (size_t)t * npix, cbase = (size_t)t * 2 * npix;
+  float g0[kSubs], g1[kSubs], g2[kSubs], S[kSubs], T[kSubs];
+#pragma unroll
+  for (int i = 0; i < kSubs; ++i) {
+    g0[i] = g1[i] = g2[i] = S[i] = 0.0f;
+    T[i] = 1.0f;
+    if (!me.owns(i, grid, tile_size)) continue;
+    const size_t p = base + me.pix(i, grid, tile_size);
+    const size_t q = cbase + me.pix(i, grid, tile_size);
+    g0[i] = g_color[p * 3 + 0];
+    g1[i] = g_color[p * 3 + 1];
+    g2[i] = g_color[p * 3 + 2];
+    if (carry_in) {
+      S[i] = carry_in[q];
+      T[i] = carry_in[q + npix];
+    } else {
+      S[i] = __fadd_rn(
+          __fadd_rn(__fadd_rn(__fmul_rn(g0[i], color[p * 3 + 0]), __fmul_rn(g1[i], color[p * 3 + 1])),
+                    __fmul_rn(g2[i], color[p * 3 + 2])),
+          __fmul_rn(g_trans[p], trans[p]));
+    }
   }
 
-  Staging st(smem, feat, pair_gaussian + start, count, walk, pair_block, min_alpha);
-  st.begin(me);
+  Staging<kSplit> st(smem, feat, pair_gaussian + start, count, walk, pair_block, min_alpha);
+  st.begin(grid);
   __syncthreads();
-  for (int b = 0; b < walk; ++b) {
-    st.issue(b + 2);
-    const int n = st.size(b);
+  for (int s = 0; s < st.batches; ++s) {
+    st.issue(s + 2);
+    const int n = st.size(s);
     for (int r0 = 0; r0 < n; r0 += round_pairs) {
       const int m = min(round_pairs, n - r0);
       for (int g = r0; g < r0 + m; g += 32) {
         const int k = g + lane;
-        unsigned mask = __ballot_sync(kFull, k < r0 + m && span_holds(st.span(b, k), me.wx, me.wy));
-        while (mask) {
-          const int j = g + __ffs(mask) - 1;
-          mask &= mask - 1;
-          const float* s = st.row(b, j);
-          const PairEval e = eval_pair(s, px, py, min_alpha, max_alpha);
-          const float a = e.valid ? e.alpha : 0.0f;
-          const float tk = T;
-          const float w = __fmul_rn(a, tk);
-          const float u = __fadd_rn(
-              __fadd_rn(__fmul_rn(s[R], g0), __fmul_rn(s[G], g1)), __fmul_rn(s[B], g2));
-          S = __fsub_rn(S, __fmul_rn(w, u));
-          const float om = __fsub_rn(1.0f, a);
-          const float d_a = e.valid ? __fsub_rn(__fmul_rn(u, tk), __fdiv_rn(S, om)) : 0.0f;
-          const float d_raw = e.raw < max_alpha ? d_a : 0.0f;
-          const float dd = __fmul_rn(d_raw, e.raw);
-          T = __fmul_rn(tk, om);
-
+        const unsigned span = k < r0 + m ? st.span(s, k) : kNoWarps;
+        unsigned mask[kSubs], walked = 0u;
+#pragma unroll
+        for (int i = 0; i < kSubs; ++i) {
+          mask[i] = __ballot_sync(kFull, span_holds(span, me.rect_x(i), me.rect_y(i)));
+          walked |= mask[i];
+        }
+        while (walked) {
+          const int bit = __ffs(walked) - 1;
+          walked &= walked - 1;
+          const int j = g + bit;
+          const float* row = st.row(s, j);
           float* out = red + ((size_t)warp * round_pairs + (j - r0)) * kGrad;
-          if (!__any_sync(kFull, e.valid)) {
-            if (lane < kGrad) out[lane] = 0.0f;
-            continue;
-          }
-          const float cx = s[CX], cy = s[CY], cxy = s[CXY];
           float v[kGrad];
-          v[0] = __fmul_rn(dd, -__fadd_rn(__fmul_rn(cx, e.dx), __fmul_rn(cxy, e.dy)));
-          v[1] = __fmul_rn(dd, -__fadd_rn(__fmul_rn(cy, e.dy), __fmul_rn(cxy, e.dx)));
-          v[2] = __fmul_rn(dd, __fmul_rn(__fmul_rn(-0.5f, e.dx), e.dx));
-          v[3] = __fmul_rn(dd, __fmul_rn(__fmul_rn(-0.5f, e.dy), e.dy));
-          v[4] = __fmul_rn(dd, __fmul_rn(-e.dx, e.dy));
-          v[5] = __fmul_rn(d_raw, e.expd);
-          v[6] = __fmul_rn(w, g0);
-          v[7] = __fmul_rn(w, g1);
-          v[8] = __fmul_rn(w, g2);
+          if constexpr (kSubs == 1) {
+            const PixelStep p = walk_pixel(row, me.px0, me.py0, g0[0], g1[0], g2[0], S[0], T[0], min_alpha, max_alpha);
+            if (!__any_sync(kFull, p.e.valid)) {
+              if (lane < kGrad) out[lane] = 0.0f;
+              continue;
+            }
+            pixel_terms(p, row, g0[0], g1[0], g2[0], v);
+          } else {
+            // This thread's pixels in rect order: their terms summed in a fixed order.
+            bool any = false;  // some lane's pixel passed the gate: the warp sums
+#pragma unroll
+            for (int c = 0; c < kGrad; ++c) v[c] = 0.0f;
+#pragma unroll
+            for (int i = 0; i < kSubs; ++i) {
+              if (!((mask[i] >> bit) & 1u)) continue;
+              const PixelStep p = walk_pixel(row, me.px(i), me.py(i), g0[i], g1[i], g2[i], S[i], T[i], min_alpha,
+                                             max_alpha);
+              if (!__any_sync(kFull, p.e.valid)) continue;
+              any = true;
+              float terms[kGrad];
+              pixel_terms(p, row, g0[i], g1[i], g2[i], terms);
+#pragma unroll
+              for (int c = 0; c < kGrad; ++c) v[c] = __fadd_rn(v[c], terms[c]);
+            }
+            if (!any) {
+              if (lane < kGrad) out[lane] = 0.0f;
+              continue;
+            }
+          }
           warp_sum9(v, lane, out);
         }
       }
-      if (r0 + m >= n) st.prepare(b + 1, me);
+      if (r0 + m >= n) st.prepare(s + 1, grid);
       __syncthreads();  // every walking warp's slots of this round are written
-      // Row r0 + i, column c: the slots of the warps in the pair's span, in
-      // warp order (the other warps did not walk the pair: exact zeros).
-      float* rows = pair_grads + (size_t)(start + b * pair_block + r0) * kGrad;
+      // Row r0 + i, column c: the slots of the warps that own a rect in the
+      // pair's span, in warp order (the other warps did not walk the pair:
+      // exact zeros).
+      float* rows = pair_grads + (size_t)(start + st.first(s) + r0) * kGrad;
       for (int k = lin; k < m * kGrad; k += blockDim.x) {
         const int i = k / kGrad, c = k - i * kGrad;
-        const unsigned span = st.span(b, r0 + i);
+        const unsigned span = st.span(s, r0 + i);
         float sum = 0.0f;
-        for (int wy = (span >> 16) & 255u; wy <= (int)(span >> 24); ++wy)
-          for (int wx = span & 255u; wx <= (int)((span >> 8) & 255u); ++wx)
-            sum += red[((size_t)(wy * me.warps_x + wx) * round_pairs + i) * kGrad + c];
+        if (FX == 1 || span != kNoWarps) {  // with FX 1, kNoWarps's x range is empty
+          for (int by = ((span >> 16) & 255u) / FY; by <= (int)(span >> 24) / FY; ++by)
+            for (int bx = (span & 255u) / FX; bx <= (int)((span >> 8) & 255u) / FX; ++bx)
+              sum += red[((size_t)(by * blocks_x<FX>(grid) + bx) * round_pairs + i) * kGrad + c];
+        }
         rows[k] = sum;
       }
-      __syncthreads();  // red is free for the next round, batch b's buffers for reuse
+      __syncthreads();  // red is free for the next round, sub-batch s's buffers for reuse
     }
   }
   st.finish();
   if (carry_out) {
-    carry_out[q] = S;
-    carry_out[q + npix] = T;
+#pragma unroll
+    for (int i = 0; i < kSubs; ++i) {
+      if (!me.owns(i, grid, tile_size)) continue;
+      const size_t q = cbase + me.pix(i, grid, tile_size);
+      carry_out[q] = S[i];
+      carry_out[q + npix] = T[i];
+    }
   }
+}
+
+using BwdKernel = decltype(&raster_bwd_kernel<1, 1, false>);
+
+// The instantiation for a warp layout and pair block.
+BwdKernel pick(const WarpLayout& l, int pair_block) {
+  if (pair_block > kSubRows) {
+    return l.fx == 1 ? (l.fy == 1 ? &raster_bwd_kernel<1, 1, true> : &raster_bwd_kernel<1, 2, true>) : &raster_bwd_kernel<2, 2, true>;
+  }
+  return l.fx == 1 ? (l.fy == 1 ? &raster_bwd_kernel<1, 1, false> : &raster_bwd_kernel<1, 2, false>) : &raster_bwd_kernel<2, 2, false>;
 }
 
 }  // namespace
 
-// Launches one block of tile_size^2 threads per tile on `stream` (the tile
-// must be a multiple of the warp rect: cudaErrorInvalidValue otherwise);
-// allocates nothing and does not synchronise. `pair_grads` must be
-// zero-filled. With carry_in set, color and trans are not read (they may be
-// null); carry_out may be null. Returns cudaGetLastError() after the launch
-// (a refused launch never runs, and a later synchronise would not report
-// it).
+// Launches one block per tile, of warp_layout(tile_size).warps warps, on
+// `stream` (a tile edge outside 1..kMaxTile or a pair block below 1:
+// cudaErrorInvalidValue); allocates nothing and does not synchronise.
+// `pair_grads` must be zero-filled. With carry_in set, color and trans are
+// not read (they may be null); carry_out may be null. Returns
+// cudaGetLastError() after the launch (a refused launch never runs, and a
+// later synchronise would not report it).
 extern "C" int gsplat_raster_bwd(
     const void* feat, const void* pair_gaussian, const void* tile_start,
     const void* tile_count, const void* tile_ids, const void* blocks_done,
@@ -251,17 +336,18 @@ extern "C" int gsplat_raster_bwd(
     int tile_size, int pair_block, float min_alpha, float max_alpha,
     void* pair_grads, void* carry_out, void* stream) {
   if (num_tiles == 0) return 0;
-  if (!gsplat::tile_supported(tile_size) || pair_block < 1) return (int)cudaErrorInvalidValue;
-  const int threads = tile_size * tile_size;
-  const int round_pairs = sum_round(threads / 32, pair_block);
+  const gsplat::WarpLayout layout = gsplat::warp_layout(tile_size);
+  if (layout.fx == 0 || pair_block < 1) return (int)cudaErrorInvalidValue;
+  const BwdKernel kernel = pick(layout, pair_block);
+  const int round_pairs = sum_round(layout.warps, pair_block);
   const size_t smem = gsplat::staging_bytes(pair_block) +
-                      (size_t)(threads / 32) * round_pairs * kGrad * sizeof(float);
+                      (size_t)layout.warps * round_pairs * kGrad * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        raster_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  raster_bwd_kernel<<<num_tiles, threads, smem, (cudaStream_t)stream>>>(
+  kernel<<<num_tiles, layout.warps * 32, smem, (cudaStream_t)stream>>>(
       static_cast<const float*>(feat), static_cast<const int*>(pair_gaussian),
       static_cast<const int*>(tile_start), static_cast<const int*>(tile_count),
       static_cast<const int*>(tile_ids), static_cast<const int*>(blocks_done),

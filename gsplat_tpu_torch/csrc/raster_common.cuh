@@ -1,8 +1,8 @@
 // Shared by the forward and backward tile compositors (raster_fwd.cu,
 // raster_bwd.cu): the packed feature row layout, the per (pair, pixel)
-// density, alpha and validity gate, the warp-to-pixel mapping, each pair's
-// alpha-bound rect, and the pipeline that stages batches of pair rows into
-// shared memory.
+// density, alpha and validity gate, the map from threads to pixels, each
+// pair's alpha-bound rect, and the pipeline that stages sub-batches of pair
+// rows into shared memory.
 //
 // The backward recomputes every alpha of the forward, and the gates
 // (alpha > 1/255, density <= 0, the half-open bbox) are hard thresholds: a
@@ -12,15 +12,22 @@
 // FMA contraction) and expf, which also round every product and sum as the
 // plain PyTorch versions do, whose operations are separate kernels.
 //
-// Culling. Each warp owns a compact kWarpW x kWarpH rect of the tile's
-// pixels. While a batch is staged, the thread that staged pair j bounds the
-// pixels where the pair's gate can pass (alpha_rect) and stores which of the
-// tile's warps that rect meets (warp_span). A warp walks only the pairs
-// whose span holds it; for every other pair its pixels fail the gate, so
-// skipping the pair changes nothing: the forward composites nothing there,
-// and in the backward alpha = 0 leaves the walk state and every per-pixel
-// term as they were. The gate itself is unchanged, so results stay bitwise
-// those of a walk over every pair.
+// Culling. A tile's pixels are cut into compact kWarpW x kWarpH rects, each
+// walked by the 32 lanes of one warp. While a sub-batch is staged, the
+// thread that staged pair j bounds the pixels where the pair's gate can
+// pass (alpha_rect) and stores which of the tile's rects that bound meets
+// (warp_span). A warp walks a pair in a rect only if the span holds the
+// rect; at every other pixel the gate fails, so skipping the pair changes
+// nothing: the forward composites nothing there, and in the backward
+// alpha = 0 leaves the walk state and every per-pixel term as they were.
+// The gate itself is unchanged, so results stay bitwise those of a walk
+// over every pair.
+//
+// Tilings. Any tile edge from 1 to kMaxTile (warp_layout): the rect grid is
+// rounded up past the tile's edge, and a thread owns one, two or four
+// pixels, so that a tile of up to 4096 pixels is one block of at most 1024
+// threads. The pair block sets only where the early-stop vote is taken;
+// staging goes by sub-batches of at most kSubRows rows.
 
 #pragma once
 
@@ -33,53 +40,107 @@ constexpr int kRowFloats = 16;  // floats per packed feature row
 // Column layout of a packed feature row (ops/binning.py FEAT_*).
 enum Col { MX = 0, MY, CX, CY, CXY, OP, R, G, B, X0, Y0, X1, Y1 };
 
-// The pixel rect a warp owns (kernels/cull.py WARP_RECT mirrors it). 8x4
-// was measured against 16x2 and 32x1 and is the fastest: compact rects cull
-// most where splats are small.
+// The pixel rect a warp walks as one (kernels/cull.py WARP_RECT mirrors
+// it). 8x4 was measured against 16x2 and 32x1 and is the fastest: compact
+// rects cull most where splats are small.
 constexpr int kWarpW = 8;
 constexpr int kWarpH = 4;
+constexpr int kMaxTile = 64;   // the largest tile edge (kernels/cull.py MAX_TILE)
+constexpr int kMaxWarps = 32;  // warps of a block: 1024 threads
 constexpr unsigned kFull = 0xffffffffu;
-constexpr unsigned kNoWarps = 1u;  // a span with lo_x 1 > hi_x 0: no warp
+constexpr unsigned kNoWarps = 1u;  // a span with lo_x 1 > hi_x 0: no rect
 constexpr int kStages = 3;  // row buffers: composited, rect being taken, in flight
+constexpr int kSubRows = 256;  // rows a staged sub-batch holds at most (kernels/cull.py SUB_ROWS)
 constexpr size_t kMaxSmem = 232448;  // shared memory a block may opt in to on Hopper (kernels/cull.py MAX_SMEM)
 
-// Shared memory the staging pipeline takes for batches of pair_block pairs:
-// kStages row buffers [pair_block][16] and two span buffers [pair_block].
+// Rows of one staged sub-batch: the whole pair block up to kSubRows.
+__host__ __device__ inline int sub_rows(int pair_block) {
+  return pair_block < kSubRows ? pair_block : kSubRows;
+}
+
+// Shared memory the staging pipeline takes: kStages row buffers [sub][16]
+// and two span buffers [sub], whatever the pair block.
 __host__ __device__ inline size_t staging_bytes(int pair_block) {
-  return (size_t)pair_block * (kStages * kRowFloats + 2) * sizeof(float);
+  return (size_t)sub_rows(pair_block) * (kStages * kRowFloats + 2) * sizeof(float);
 }
 
-// Whether the warp mapping covers a tile of this size.
-inline bool tile_supported(int tile_size) {
-  return tile_size > 0 && tile_size % kWarpW == 0 && tile_size % kWarpH == 0 &&
-         tile_size * tile_size <= 1024;
-}
-
-// The pixel of this thread: warp w owns the rect at (w % warps_x, w /
-// warps_x) in units of kWarpW x kWarpH, lane l its pixel (l % kWarpW,
-// l / kWarpW). `pix` is the pixel's row-major index in the tile, which
-// indexes every per-pixel input and output as before.
-struct TilePixel {
-  int pix;        // row-major index within the tile
-  float px, py;   // frame pixel coordinates
-  int wx, wy;     // the warp's rect, in warp units within the tile
-  int warps_x, warps_y;
-  float ox, oy;   // the tile's first pixel
+// How a tile's warp rects map onto the block's warps (kernels/cull.py
+// warp_layout mirrors it). The tile is covered by a grid of
+// ceil(ts / kWarpW) x ceil(ts / kWarpH) rects, rounded up past its edge
+// where the edge is not a multiple of the rect. Each warp owns a block of
+// fx x fy rects, the first of 1x1, 1x2 and 2x2 that keeps the block within
+// kMaxWarps warps, and each thread one pixel in each of its warp's rects:
+// one pixel up to 32 rects (1024 pixels), two up to 2048, four up to 4096.
+// So a tile is always one thread block, with one early-stop decision per
+// pair block as in the TPU kernel. fx = 0: the tile is not supported.
+struct WarpLayout {
+  int fx, fy, warps;
 };
 
-__device__ __forceinline__ TilePixel tile_pixel(int tile, int n_tiles_x, int tile_size) {
-  TilePixel p;
+inline WarpLayout warp_layout(int tile_size) {
+  if (tile_size < 1 || tile_size > kMaxTile) return WarpLayout{0, 0, 0};
+  const int rx = (tile_size + kWarpW - 1) / kWarpW, ry = (tile_size + kWarpH - 1) / kWarpH;
+  const int blocks[3][2] = {{1, 1}, {1, 2}, {2, 2}};
+  for (const auto& f : blocks) {
+    const int warps = ((rx + f[0] - 1) / f[0]) * ((ry + f[1] - 1) / f[1]);
+    if (warps <= kMaxWarps) return WarpLayout{f[0], f[1], warps};
+  }
+  return WarpLayout{0, 0, 0};
+}
+
+// The tile's first pixel and its grid of rects.
+struct TileGrid {
+  float ox, oy;
+  int rects_x, rects_y;
+};
+
+__device__ __forceinline__ TileGrid tile_grid(int tile, int n_tiles_x, int tile_size) {
+  TileGrid g;
+  g.ox = (float)((tile % n_tiles_x) * tile_size);
+  g.oy = (float)((tile / n_tiles_x) * tile_size);
+  g.rects_x = (tile_size + kWarpW - 1) / kWarpW;
+  g.rects_y = (tile_size + kWarpH - 1) / kWarpH;
+  return g;
+}
+
+// The pixels of this thread. Warp w owns the FX x FY block of rects at
+// (w % blocks_x, w / blocks_x) in block units; its rect i is the block's
+// (i % FX, i / FX); lane l owns pixel (l % kWarpW, l / kWarpW) of each rect.
+// A pixel past the tile's edge is owned by no one: its lane still takes
+// part in every warp vote and shuffle, and writes nothing. pix(i) is the
+// pixel's row-major index in the tile, which indexes every per-pixel input
+// and output. Only the first pixel's frame coordinates are kept, as floats
+// for the gate (whole numbers, so every offset and difference is exact);
+// the rest derives from them.
+template <int FX, int FY>
+struct TilePixels {
+  static constexpr int kSubs = FX * FY;  // pixels of a thread
+  int rx, ry;        // the warp's first rect, in rect units
+  float px0, py0;    // this lane's pixel in that rect, frame coordinates
+  __device__ __forceinline__ int rect_x(int i) const { return rx + i % FX; }
+  __device__ __forceinline__ int rect_y(int i) const { return ry + i / FX; }
+  __device__ __forceinline__ float px(int i) const { return i % FX == 0 ? px0 : px0 + (float)((i % FX) * kWarpW); }
+  __device__ __forceinline__ float py(int i) const { return i / FX == 0 ? py0 : py0 + (float)((i / FX) * kWarpH); }
+  __device__ __forceinline__ bool owns(int i, const TileGrid& g, int ts) const {
+    return px(i) < g.ox + (float)ts && py(i) < g.oy + (float)ts;
+  }
+  __device__ __forceinline__ int pix(int i, const TileGrid& g, int ts) const {
+    return (int)(py(i) - g.oy) * ts + (int)(px(i) - g.ox);
+  }
+};
+
+// Warp blocks per row of the grid.
+template <int FX>
+__device__ __forceinline__ int blocks_x(const TileGrid& g) { return (g.rects_x + FX - 1) / FX; }
+
+template <int FX, int FY>
+__device__ __forceinline__ TilePixels<FX, FY> tile_pixels(const TileGrid& g) {
+  TilePixels<FX, FY> p;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  p.warps_x = tile_size / kWarpW;
-  p.warps_y = tile_size / kWarpH;
-  p.wx = warp % p.warps_x;
-  p.wy = warp / p.warps_x;
-  const int lx = p.wx * kWarpW + lane % kWarpW, ly = p.wy * kWarpH + lane / kWarpW;
-  p.pix = ly * tile_size + lx;
-  p.ox = (float)((tile % n_tiles_x) * tile_size);
-  p.oy = (float)((tile / n_tiles_x) * tile_size);
-  p.px = p.ox + (float)lx;
-  p.py = p.oy + (float)ly;
+  p.rx = (warp % blocks_x<FX>(g)) * FX;
+  p.ry = (warp / blocks_x<FX>(g)) * FY;
+  p.px0 = g.ox + (float)(p.rx * kWarpW + lane % kWarpW);
+  p.py0 = g.oy + (float)(p.ry * kWarpH + lane / kWarpW);
   return p;
 }
 
@@ -123,85 +184,120 @@ __device__ __forceinline__ float4 alpha_rect(const float* row, float min_alpha) 
   return make_float4((float)x0, (float)y0, (float)x1, (float)y1r);
 }
 
-// The warps of the tile whose rect meets pixel rect r, packed as lo_x |
-// hi_x << 8 | lo_y << 16 | hi_y << 24 (inclusive, in warp units), or
-// kNoWarps. Warp wx covers [ox + wx*kWarpW, ox + (wx+1)*kWarpW); rect
+// The rects of the tile's grid that meet pixel rect r, packed as lo_x |
+// hi_x << 8 | lo_y << 16 | hi_y << 24 (inclusive, in rect units), or
+// kNoWarps. Rect rx covers [ox + rx*kWarpW, ox + (rx+1)*kWarpW); rect
 // coordinates are whole pixels, so the divisions are exact.
-__device__ __forceinline__ unsigned warp_span(float4 r, const TilePixel& t) {
+__device__ __forceinline__ unsigned warp_span(float4 r, const TileGrid& t) {
   if (!(r.z > r.x && r.w > r.y)) return kNoWarps;
   const float lx = fmaxf(floorf((r.x - t.ox) / kWarpW), 0.0f);
-  const float hx = fminf(floorf((r.z - 1.0f - t.ox) / kWarpW), (float)(t.warps_x - 1));
+  const float hx = fminf(floorf((r.z - 1.0f - t.ox) / kWarpW), (float)(t.rects_x - 1));
   const float ly = fmaxf(floorf((r.y - t.oy) / kWarpH), 0.0f);
-  const float hy = fminf(floorf((r.w - 1.0f - t.oy) / kWarpH), (float)(t.warps_y - 1));
+  const float hy = fminf(floorf((r.w - 1.0f - t.oy) / kWarpH), (float)(t.rects_y - 1));
   if (!(lx <= hx && ly <= hy)) return kNoWarps;
   return (unsigned)lx | (unsigned)hx << 8 | (unsigned)ly << 16 | (unsigned)hy << 24;
 }
 
-// Stages the rows of a tile's pair batches into shared memory, two batches
-// ahead of the one being composited. Thread i owns rows i, i + blockDim.x,
-// ... of every batch (one row each unless pair_block exceeds the tile's
-// pixels): it copies them with cp.async (four 16-byte copies a row; Hopper's
-// TMA does not gather rows by index), and once its own copies have landed it
-// takes each pair's rect and span from the staged row. Each batch is one
-// cp.async group of every thread (empty past the last batch), so
-// __pipeline_wait_prior(1) always means "all but the newest batch have
-// landed". The pair id of a thread's first row of the next batch to issue is
-// loaded a batch early, so issuing never waits on it.
+// Stages the rows of a tile's pairs into shared memory, two sub-batches
+// ahead of the one being composited. A pair block of up to kSubRows rows is
+// one sub-batch; a larger one is cut into sub-batches of kSubRows rows (the
+// last of a block may be shorter), so shared memory does not grow with the
+// pair block, and no sub-batch straddles two blocks: the caller takes the
+// early-stop vote where a sub-batch ends a block (ends_block). Thread i owns
+// rows i, i + blockDim.x, ... of every sub-batch: it copies them with
+// cp.async (four 16-byte copies a row; Hopper's TMA does not gather rows by
+// index), and once its own copies have landed it takes each pair's rect and
+// span from the staged row. Each sub-batch is one cp.async group of every
+// thread (empty past the last), so __pipeline_wait_prior(1) always means
+// "all but the newest sub-batch have landed". The pair id of a thread's
+// first row of the next sub-batch to issue is loaded a sub-batch early, so
+// issuing never waits on it.
 //
-// Use: begin(); __syncthreads(); then for every batch b: issue(b + 2),
-// composite batch b (row(b, j), span(b, j)), prepare(b + 1), and a block
-// barrier before batch b + 1; finish() before the block exits.
+// Use: begin(); __syncthreads(); then for every sub-batch s < batches:
+// issue(s + 2), composite sub-batch s (row(s, j), span(s, j)), prepare(s +
+// 1), and a block barrier before sub-batch s + 1; finish() before the block
+// exits. kSplit: whether a pair block is cut into several sub-batches
+// (pair_block > kSubRows); without it a sub-batch is a pair block, and the
+// sub-batch arithmetic folds away at compile time.
+template <bool kSplit>
 struct Staging {
-  float* rows;    // [kStages][pair_block][16]
-  unsigned* spans;  // [2][pair_block]
+  float* rows;      // [kStages][sub][16]
+  unsigned* spans;  // [2][sub]
   const float* feat;
   const int* pairs;  // the tile's pair slots
-  int count, batches, pair_block;
+  int count, pair_block, sub, parts;
+  int batches;  // sub-batches of the walked blocks
   float min_alpha;
-  int next_gid;  // pair id of this thread's first row in the next batch to issue
+  int next_gid;  // pair id of this thread's first row in the next sub-batch to issue
 
-  __device__ Staging(float* smem, const float* feat_, const int* pairs_, int count_, int batches_,
-                     int pair_block_, float min_alpha_)
-      : rows(smem), spans(reinterpret_cast<unsigned*>(smem + (size_t)kStages * pair_block_ * kRowFloats)),
-        feat(feat_), pairs(pairs_), count(count_), batches(batches_), pair_block(pair_block_),
-        min_alpha(min_alpha_), next_gid(0) {}
-
-  __device__ __forceinline__ int size(int b) const { return min(pair_block, count - b * pair_block); }
-  __device__ __forceinline__ bool mine(int b) const { return b < batches && (int)threadIdx.x < size(b); }
-  __device__ __forceinline__ float* row(int b, int j) const {
-    return rows + ((size_t)(b % kStages) * pair_block + j) * kRowFloats;
+  // Walks the first `blocks` pair blocks of the tile's `count` pairs.
+  __device__ Staging(float* smem, const float* feat_, const int* pairs_, int count_, int blocks,
+                     int pair_block_, float min_alpha_) {
+    feat = feat_;
+    pairs = pairs_;
+    count = count_;
+    pair_block = pair_block_;
+    sub = kSplit ? kSubRows : pair_block_;
+    parts = kSplit ? (pair_block + kSubRows - 1) / kSubRows : 1;
+    rows = smem;
+    spans = reinterpret_cast<unsigned*>(smem + (size_t)kStages * sub * kRowFloats);
+    if (kSplit) {
+      batches = blocks > 0
+          ? (blocks - 1) * parts + (min(pair_block, count - (blocks - 1) * pair_block) + sub - 1) / sub
+          : 0;
+    } else {
+      batches = blocks;
+    }
+    min_alpha = min_alpha_;
+    next_gid = 0;
   }
-  __device__ __forceinline__ unsigned span(int b, int j) const { return spans[(b & 1) * pair_block + j]; }
 
-  __device__ __forceinline__ void load_gid(int b) {
-    if (mine(b)) next_gid = pairs[b * pair_block + threadIdx.x];
+  __device__ __forceinline__ int block(int s) const { return kSplit ? s / parts : s; }
+  __device__ __forceinline__ int first(int s) const {
+    return kSplit ? block(s) * pair_block + (s % parts) * sub : s * pair_block;
+  }
+  __device__ __forceinline__ int size(int s) const {
+    return kSplit ? min(min(sub, pair_block - (s % parts) * sub), count - first(s))
+                  : min(pair_block, count - s * pair_block);
+  }
+  __device__ __forceinline__ bool ends_block(int s) const {
+    return !kSplit || s % parts == parts - 1 || s == batches - 1;
+  }
+  __device__ __forceinline__ bool mine(int s) const { return s < batches && (int)threadIdx.x < size(s); }
+  __device__ __forceinline__ float* row(int s, int j) const {
+    return rows + ((size_t)(s % kStages) * sub + j) * kRowFloats;
+  }
+  __device__ __forceinline__ unsigned span(int s, int j) const { return spans[(s & 1) * sub + j]; }
+
+  __device__ __forceinline__ void load_gid(int s) {
+    if (mine(s)) next_gid = pairs[first(s) + threadIdx.x];
   }
 
-  __device__ __forceinline__ void issue(int b) {
-    if (b < batches) {
-      const int n = size(b);
+  __device__ __forceinline__ void issue(int s) {
+    if (s < batches) {
+      const int n = size(s), f = first(s);
       for (int j = threadIdx.x; j < n; j += blockDim.x) {
-        const int gid = j == (int)threadIdx.x ? next_gid : pairs[b * pair_block + j];
+        const int gid = j == (int)threadIdx.x ? next_gid : pairs[f + j];
         const float* src = feat + (size_t)gid * kRowFloats;
-        float* dst = row(b, j);
+        float* dst = row(s, j);
 #pragma unroll
         for (int q = 0; q < 4; ++q) __pipeline_memcpy_async(dst + 4 * q, src + 4 * q, 16);
       }
     }
     __pipeline_commit();
-    load_gid(b + 1);
+    load_gid(s + 1);
   }
 
-  __device__ __forceinline__ void prepare(int b, const TilePixel& t) {
+  __device__ __forceinline__ void prepare(int s, const TileGrid& t) {
     __pipeline_wait_prior(1);
-    if (b < batches) {
-      const int n = size(b);
+    if (s < batches) {
+      const int n = size(s);
       for (int j = threadIdx.x; j < n; j += blockDim.x)
-        spans[(b & 1) * pair_block + j] = warp_span(alpha_rect(row(b, j), min_alpha), t);
+        spans[(s & 1) * sub + j] = warp_span(alpha_rect(row(s, j), min_alpha), t);
     }
   }
 
-  __device__ __forceinline__ void begin(const TilePixel& t) {
+  __device__ __forceinline__ void begin(const TileGrid& t) {
     load_gid(0);
     issue(0);
     issue(1);

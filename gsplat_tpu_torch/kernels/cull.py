@@ -2,9 +2,10 @@
 the warp rect, the tilings the kernels take, and the counts of the work the
 culled kernels do.
 
-Both CUDA compositors (``csrc/raster_fwd.cu``, ``csrc/raster_bwd.cu``) give
-each warp a compact ``WARP_RECT`` of a tile's pixels and walk, in each warp,
-only the pairs whose alpha-bound rect meets it (``csrc/raster_common.cuh``
+Both CUDA compositors (``csrc/raster_fwd.cu``, ``csrc/raster_bwd.cu``) cut a
+tile's pixels into compact rects of ``WARP_RECT`` pixels, each walked by one
+warp (a warp owns one, two or four of them: :func:`warp_layout`), and walk
+in each rect only the pairs whose alpha-bound rect meets it (``csrc/raster_common.cuh``
 ``alpha_rect`` and ``warp_span``). :func:`pair_alpha_rect` is the plain twin
 of ``alpha_rect``. Nothing on the render or training path calls this
 module's culling functions: the kernels take their rects themselves (the
@@ -23,29 +24,63 @@ import torch
 from gsplat_tpu_torch.ops import binning as B
 from gsplat_tpu_torch.ops.compositing import MIN_ALPHA_F32
 
-WARP_RECT = (8, 4)  # pixels a warp owns, x by y (csrc/raster_common.cuh kWarpW, kWarpH)
-MAX_THREADS = 1024
+WARP_RECT = (8, 4)  # pixels a warp walks as one, x by y (csrc/raster_common.cuh kWarpW, kWarpH)
+MAX_TILE = 64  # the largest tile edge the kernels take (kMaxTile)
+MAX_WARPS = 32  # warps of a block: 1024 threads
+WARP_BLOCKS = ((1, 1), (1, 2), (2, 2))  # rects a warp may own, x by y, in the order tried
+SUB_ROWS = 256  # rows a staged sub-batch holds at most (kSubRows)
 MAX_SMEM = 232448  # shared memory a block may opt in to on Hopper
+
+
+def rect_grid(tile_size: int) -> Tuple[int, int]:
+    """The kernels' grid of warp rects over a tile, ``(rects_x, rects_y)``:
+    rounded up past the tile's edge where it is not a multiple of
+    ``WARP_RECT`` (lanes whose pixel lies past the edge own none)."""
+    ww, wh = WARP_RECT
+    return -(-tile_size // ww), -(-tile_size // wh)
+
+
+def warp_layout(tile_size: int) -> Tuple[int, int, int]:
+    """How the kernels map a tile's rects onto warps (``warp_layout`` in
+    ``csrc/raster_common.cuh``): ``(fx, fy, warps)``, each warp owning a
+    block of ``fx x fy`` rects (each thread a pixel in each), the first of
+    ``WARP_BLOCKS`` that needs at most ``MAX_WARPS`` warps. Raises
+    ValueError for a tile edge outside 1..``MAX_TILE``."""
+    if not 1 <= tile_size <= MAX_TILE:
+        raise ValueError(
+            f"tile_size {tile_size} not supported: the compositors take tile edges from 1 to {MAX_TILE} (a tile "
+            f"is one thread block of at most {MAX_WARPS * 32} threads, each owning at most 4 pixels)"
+        )
+    rx, ry = rect_grid(tile_size)
+    for fx, fy in WARP_BLOCKS:
+        warps = -(-rx // fx) * -(-ry // fy)
+        if warps <= MAX_WARPS:
+            return fx, fy, warps
+    raise AssertionError("unreachable: a 2x2 block covers every tile up to MAX_TILE")
 
 
 def staging_bytes(pair_block: int) -> int:
     """Shared memory of the kernels' staging pipeline (``staging_bytes`` in
-    ``csrc/raster_common.cuh``): three row buffers ``[pair_block, 16]`` and
-    two warp-span buffers ``[pair_block]``."""
-    return pair_block * (3 * B.NUM_FEATURES + 2) * 4
+    ``csrc/raster_common.cuh``): three row buffers ``[sub, 16]`` and two
+    warp-span buffers ``[sub]``, where a sub-batch holds the whole pair
+    block up to ``SUB_ROWS`` rows."""
+    return min(pair_block, SUB_ROWS) * (3 * B.NUM_FEATURES + 2) * 4
 
 
 def check_tiling(who: str, tile_size: int, pair_block: int, smem_bytes: int) -> None:
-    """Raise ValueError unless the kernels can take this tiling: the tile a
-    whole number of warp rects with at most ``MAX_THREADS`` pixels, and the
-    launch's shared memory at most ``MAX_SMEM``."""
-    ww, wh = WARP_RECT
-    if (tile_size <= 0 or tile_size % ww or tile_size % wh or tile_size ** 2 > MAX_THREADS
-            or pair_block <= 0 or smem_bytes > MAX_SMEM):
+    """Raise ValueError unless the kernels can take this tiling: a tile edge
+    from 1 to ``MAX_TILE``, a positive pair block, and the launch's shared
+    memory at most ``MAX_SMEM``."""
+    if pair_block <= 0:
+        raise ValueError(f"{who}: pair_block {pair_block} not supported: it must be positive")
+    try:
+        warp_layout(tile_size)
+    except ValueError as e:
+        raise ValueError(f"{who}: {e}") from None
+    if smem_bytes > MAX_SMEM:
         raise ValueError(
-            f"{who}: tile_size {tile_size} / pair_block {pair_block} not supported (the tile must be "
-            f"a multiple of the {ww}x{wh} warp rect with at most {MAX_THREADS} pixels, and shared "
-            f"memory at most {MAX_SMEM} bytes; needs {smem_bytes})"
+            f"{who}: tile_size {tile_size} / pair_block {pair_block} not supported: needs {smem_bytes} bytes of "
+            f"shared memory, above the {MAX_SMEM} a block may take"
         )
 
 
@@ -95,16 +130,19 @@ def cull_counts(rect: torch.Tensor, ox: torch.Tensor, oy: torch.Tensor,
                 tile_size: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """For pairs with rects ``rect [P, 4]`` walked in tiles whose first
     pixels are ``(ox, oy)`` (each ``[P]``): the tile pixels inside each rect,
-    and the warp rects of the tile that each rect meets, which are the
-    warps that walk the pair (``warp_span`` in ``csrc/raster_common.cuh``).
+    and the warp rects of the tile's grid (``rect_grid``, rounded up past
+    the tile's edge) that each rect meets, which are the rects in which a
+    warp walks the pair (``warp_span`` in ``csrc/raster_common.cuh``).
     Returns two int64 ``[P]``."""
     ww, wh = WARP_RECT
+    rx, ry = rect_grid(tile_size)
     ox, oy = ox.to(rect.dtype), oy.to(rect.dtype)
     x0, x1 = torch.maximum(rect[:, 0], ox), torch.minimum(rect[:, 2], ox + tile_size)
     y0, y1 = torch.maximum(rect[:, 1], oy), torch.minimum(rect[:, 3], oy + tile_size)
-    w, h = (x1 - x0).clamp(min=0), (y1 - y0).clamp(min=0)
-    pixels = (w * h).long()
-    nwx = torch.floor((x1 - 1 - ox) / ww) - torch.floor((x0 - ox) / ww) + 1
-    nwy = torch.floor((y1 - 1 - oy) / wh) - torch.floor((y0 - oy) / wh) + 1
-    warps = torch.where(pixels > 0, nwx * nwy, 0.0).long()
+    pixels = ((x1 - x0).clamp(min=0) * (y1 - y0).clamp(min=0)).long()
+    gx0, gx1 = torch.maximum(rect[:, 0], ox), torch.minimum(rect[:, 2], ox + rx * ww)
+    gy0, gy1 = torch.maximum(rect[:, 1], oy), torch.minimum(rect[:, 3], oy + ry * wh)
+    nwx = torch.floor((gx1 - 1 - ox) / ww) - torch.floor((gx0 - ox) / ww) + 1
+    nwy = torch.floor((gy1 - 1 - oy) / wh) - torch.floor((gy0 - oy) / wh) + 1
+    warps = torch.where((gx1 > gx0) & (gy1 > gy0), nwx * nwy, 0.0).long()
     return pixels, warps

@@ -25,7 +25,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from gsplat_tpu_torch.config import RasterConfig
-from gsplat_tpu_torch.kernels.raster_bwd import backward_tiles, reduce_compacted, reduce_pair_grads
+from gsplat_tpu_torch.kernels.raster_bwd import backward_tiles, reduce_compacted, reduce_exact, reduce_pair_grads
 from gsplat_tpu_torch.kernels.raster_fwd import forward_tiles
 from gsplat_tpu_torch.utils.stages import stage
 
@@ -62,9 +62,12 @@ class _RasterizeTiles(torch.autograd.Function):
 
 def _reduce(pair_grads, pair_gaussian, tile_start, gaussian_counts, blocks_done, num_rows, cfg):
     """The pair-to-gaussian reduction, as ``backward_tiles_pallas`` chooses
-    it: with ``cfg.reduce_pairs`` smaller than the pair buffer, the walked
+    it: with ``cfg.exact_grad_reduction``, the exact sum over every row;
+    else, with ``cfg.reduce_pairs`` smaller than the pair buffer, the walked
     blocks are gathered and reduced alone when they fit it (one host sync to
     count them), else the full reduction over every row."""
+    if cfg.exact_grad_reduction:
+        return reduce_exact(pair_grads, pair_gaussian, gaussian_counts, num_rows)
     blk = cfg.pair_block
     cap_blk = max(cfg.reduce_pairs // blk, 1)
     if gaussian_counts is not None and cfg.reduce_pairs > 0 and cap_blk < -(-pair_gaussian.shape[0] // blk):
@@ -95,9 +98,10 @@ def rasterize_tiles(
       tile_ids: ``[T]`` global tile indices to rasterize.
       gaussian_counts: ``[N]`` kept pairs per gaussian in id order
         (binning); drives the backward's sort-based gradient reduction.
-        None reduces with an exact segment sum instead. With
-        ``cfg.reduce_pairs > 0`` the backward reduces only the blocks it
-        walked when they fit that capacity.
+        None reduces with an exact segment sum instead, as does
+        ``cfg.exact_grad_reduction``. With ``cfg.reduce_pairs > 0`` the
+        backward reduces only the blocks it walked when they fit that
+        capacity.
       n_tiles_x, cfg: tile grid width and settings.
       width, height: frame size; pixels of the last row/column and outside
         the frame are left out of the early-stop test (0 = test all).

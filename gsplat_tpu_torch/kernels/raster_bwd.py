@@ -57,19 +57,21 @@ _ARGTYPES = (
 _SCAN_BLOCK = 1024  # row length of the blocked cumsum
 
 
-def _sum_round(npix: int, pair_block: int) -> int:
+def _sum_round(tile_size: int, pair_block: int) -> int:
     """Pairs per round of the kernel's pixel sums (csrc/raster_bwd.cu
-    ``sum_round``): the whole batch where its warp slots fit in shared
-    memory beside the staging, else 32."""
-    whole = cull.staging_bytes(pair_block) + (npix // 32) * pair_block * NUM_GRAD * 4
-    return pair_block if whole <= cull.MAX_SMEM else 32
+    ``sum_round``): the whole staged sub-batch where its warp slots fit in
+    shared memory beside the staging, else 32."""
+    sub = min(pair_block, cull.SUB_ROWS)
+    whole = cull.staging_bytes(pair_block) + cull.warp_layout(tile_size)[2] * sub * NUM_GRAD * 4
+    return sub if whole <= cull.MAX_SMEM else 32
 
 
-def _smem_bytes(npix: int, pair_block: int) -> int:
+def _smem_bytes(tile_size: int, pair_block: int) -> int:
     """The kernel's shared memory (csrc/raster_bwd.cu): the staging
-    pipeline's, and the warps' pixel sums of one round, [npix / 32,
-    round, 9]."""
-    return cull.staging_bytes(pair_block) + (npix // 32) * _sum_round(npix, pair_block) * NUM_GRAD * 4
+    pipeline's, and the warps' pixel sums of one round, [warps, round,
+    9]."""
+    warps = cull.warp_layout(tile_size)[2]
+    return cull.staging_bytes(pair_block) + warps * _sum_round(tile_size, pair_block) * NUM_GRAD * 4
 
 
 def walk_state(color: torch.Tensor, trans: torch.Tensor, g_color: torch.Tensor, g_trans: torch.Tensor) -> torch.Tensor:
@@ -99,7 +101,8 @@ def backward_tiles_plain(
 ):
     """The kernel's function in plain PyTorch, vectorized over tiles.
 
-    Walks pair blocks up to the longest tile's walk (one host sync for it).
+    Walks pair blocks up to the longest tile's walk (one host sync for it,
+    one for the largest count, where the last block stops).
     Within a block, alphas are recomputed ``chunk_size`` pairs at a time
     through ``gaussian_alpha`` and the walk runs pair by pair in the
     kernel's order and rounding; the per-pixel terms are then summed over
@@ -128,9 +131,11 @@ def backward_tiles_plain(
     sentinel = feat.shape[0] - 1
     lane = torch.arange(cs, device=dev)
     max_walk = int(walk.max()) if num_t else 0
+    max_count = int(count.max()) if num_t else 0
     for b in range(max_walk):
         live = b < walk
-        for c in range(0, blk, cs):
+        # Chunks past every tile's count would walk alpha 0 only.
+        for c in range(0, min(blk, max_count - b * blk), cs):
             k = b * blk + c + lane  # [cs] slot within the tile
             in_tile = live[:, None] & (k[None, :] < count[:, None])  # [T, cs]
             slot = torch.where(in_tile, start[:, None] + k[None, :], 0)
@@ -243,7 +248,9 @@ def _launch(who, args, blocks_done, outs, carry_in, n_tiles_x, cfg):
         raise ValueError(f"{who}: unsupported device {feat.device}")
     num_t = tile_ids.shape[0]
     npix = cfg.tile_size * cfg.tile_size
-    cull.check_tiling(who, cfg.tile_size, cfg.pair_block, _smem_bytes(npix, cfg.pair_block))
+    # The tiling first: the shared memory of the sums is counted for a tiling the kernel takes.
+    cull.check_tiling(who, cfg.tile_size, cfg.pair_block, cull.staging_bytes(cfg.pair_block))
+    cull.check_tiling(who, cfg.tile_size, cfg.pair_block, _smem_bytes(cfg.tile_size, cfg.pair_block))
     f32, i32 = torch.float32, torch.int32
     shapes = {"color": (num_t, npix, 3), "trans": (num_t, npix), "g_color": (num_t, npix, 3),
               "g_trans": (num_t, npix), "carry_in": (num_t, 2, npix)}
@@ -342,6 +349,33 @@ def reduce_pair_grads(
     return d_feat
 
 
+def reduce_exact(
+    pair_grads: torch.Tensor,
+    pair_gaussian: torch.Tensor,
+    gaussian_counts: Optional[torch.Tensor],
+    num_rows: int,
+) -> torch.Tensor:
+    """The exact reduction (``RasterConfig.exact_grad_reduction``; the JAX
+    package's exact segment sum, ``gsplat_tpu/kernels/raster_bwd.py:531``):
+    :func:`reduce_pair_grads` taken in float64 and rounded to float32 once,
+    so each gaussian's row is its pairs' sum whatever pairs lie around it in
+    the cumsum. No atomics (each gaussian's pair count, where
+    ``gaussian_counts`` is None, is an integer ``index_add_``): bitwise
+    repeatable on the card."""
+    if gaussian_counts is None:
+        gaussian_counts = pair_counts(pair_gaussian, num_rows)
+    return reduce_pair_grads(pair_grads.double(), pair_gaussian, gaussian_counts, num_rows).float()
+
+
+def pair_counts(pair_gaussian: torch.Tensor, num_rows: int) -> torch.Tensor:
+    """Pairs of each gaussian ``[num_rows - 1]`` int64, in id order, by an
+    integer ``index_add_`` over the ids (sentinel pairs, id ``N``, are not
+    counted)."""
+    counts = torch.zeros(num_rows, dtype=torch.int64, device=pair_gaussian.device)
+    counts.index_add_(0, pair_gaussian.long(), torch.ones_like(pair_gaussian, dtype=torch.int64))
+    return counts[:-1]
+
+
 def reduce_sorted(pair_grads: torch.Tensor, pair_gaussian: torch.Tensor, num_rows: int) -> torch.Tensor:
     """Sum per-pair rows ``[P, 9]`` into per-gaussian rows ``[num_rows, 16]``
     where no ``gaussian_counts`` describes the pairs (one depth slice's
@@ -357,9 +391,7 @@ def reduce_sorted(pair_grads: torch.Tensor, pair_gaussian: torch.Tensor, num_row
     repeatable on the card. Sentinel pairs (id ``N``) and ids without pairs
     get zero rows.
     """
-    counts = torch.zeros(num_rows, dtype=torch.int64, device=pair_grads.device)
-    counts.index_add_(0, pair_gaussian.long(), torch.ones_like(pair_gaussian, dtype=torch.int64))
-    return reduce_pair_grads(pair_grads, pair_gaussian, counts[:-1], num_rows)
+    return reduce_pair_grads(pair_grads, pair_gaussian, pair_counts(pair_gaussian, num_rows), num_rows)
 
 
 def written_slots(tile_start: torch.Tensor, blocks_done: torch.Tensor, total_blocks: int, pair_block: int) -> torch.Tensor:

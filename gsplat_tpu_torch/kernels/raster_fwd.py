@@ -57,12 +57,13 @@ def forward_tiles_plain(
     """The kernel's function in plain PyTorch, vectorized over tiles.
 
     Walks pair blocks up to the largest tile's count (one host sync for that
-    count). Within a block, alphas are evaluated ``chunk_size`` pairs at a
-    time and composited pair by pair in the kernel's order
-    (``C += rgb * (alpha * T)``, then ``T *= 1 - alpha``). A tile that is
-    done, or a pair slot past its tile's count, composites alpha 0, which
-    leaves color and T bitwise unchanged. ``carry`` (colour ``[T, npix, 3]``,
-    T ``[T, npix]``) is the state to resume from, (0, 1) when None.
+    count), and in the last of them stops at that count. Within a block,
+    alphas are evaluated ``chunk_size`` pairs at a time and composited pair
+    by pair in the kernel's order (``C += rgb * (alpha * T)``, then
+    ``T *= 1 - alpha``). A tile that is done, or a pair slot past its
+    tile's count, composites alpha 0, which leaves color and T bitwise
+    unchanged. ``carry`` (colour ``[T, npix, 3]``, T ``[T, npix]``) is the
+    state to resume from, (0, 1) when None.
     """
     dev, dtype = feat.device, feat.dtype
     ts, cs, blk = cfg.tile_size, cfg.chunk_size, cfg.pair_block
@@ -86,10 +87,11 @@ def forward_tiles_plain(
     sentinel = feat.shape[0] - 1
     lane = torch.arange(cs, device=dev)
     pxc, pyc = px[:, None, :], py[:, None, :]
-    max_blocks = int(nblocks.max()) if num_t else 0
-    for b in range(max_blocks):
+    max_count = int(count.max()) if num_t else 0
+    for b in range(-(-max_count // blk)):
         live = running & (b < nblocks)
-        for c in range(0, blk, cs):
+        # Chunks past every tile's count would composite alpha 0 only.
+        for c in range(0, min(blk, max_count - b * blk), cs):
             k = b * blk + c + lane  # [cs] slot within the tile
             in_tile = live[:, None] & (k[None, :] < count[:, None])  # [T, cs]
             slot = torch.where(in_tile, start[:, None] + k[None, :], 0)

@@ -232,7 +232,22 @@ def test_orbit_auto_pairs_resizes(scene_dir, tmp_path):
     assert os.path.exists(os.path.join(out, VIDEO_NAME))
 
 
-@pytest.mark.parametrize("case", ["mesh", "test_every_1", "resume_without_output", "tile_20_cuda", "slice_pairs",
+@pytest.mark.parametrize("tile", [12, 64])
+def test_evaluate_at_any_tile_size(scene_dir, tmp_path, tile):
+    """Every pixel composites the same gaussians in the same order whatever
+    the tiling (early stop off), so ``evaluate`` at tiles 12 and 64 writes
+    tile 32's ``metrics.json``."""
+    outs = []
+    for ts in (32, tile):
+        out = str(tmp_path / f"tile{ts}")
+        args = _args(scene_dir, out, True)
+        args[args.index("--tile-size") + 1] = str(ts)
+        _invoke("evaluate", args)
+        outs.append(json.load(open(os.path.join(out, "metrics.json"))))
+    assert outs[0] == outs[1]
+
+
+@pytest.mark.parametrize("case", ["mesh", "test_every_1", "resume_without_output", "tile_65_cuda", "slice_pairs",
                                   "mesh_cuda_cards", "mesh_without_torchrun", "render_mesh_data_axis"])
 def test_usage_errors(scene_dir, tmp_path, case):
     out = str(tmp_path / "out")
@@ -244,7 +259,7 @@ def test_usage_errors(scene_dir, tmp_path, case):
         "render_mesh_data_axis": ("render", ["--no-show", "--mesh", "2x1"], "render is a single view"),
         "test_every_1": ("train", ["--steps", "2", "--no-densify", "--test-every", "1"], "holds out every view"),
         "resume_without_output": ("finetune", ["--steps", "2", "--resume"], "--resume requires --output_path"),
-        "tile_20_cuda": ("render", ["--no-show", "--tile-size", "20", "--device", "cuda"], "tile_size 20"),
+        "tile_65_cuda": ("render", ["--no-show", "--tile-size", "65", "--device", "cuda"], "tile_size 65"),
         "slice_pairs": ("evaluate", ["--slice-pairs", "100"], "multiple of pair_block"),
     }[case]
     if case == "resume_without_output":

@@ -10,10 +10,12 @@ package's binning cull rect (``gsplat_tpu/ops/projection.py``
 ``_alpha_cull_bbox``), which bounds the same gate from the covariance.
 
 They also run a culled walk: the plain compositors with every pair's alpha
-forced to 0 at the pixels of the 8x4 warp rects its rect misses, which must
-leave colour, T, ``blocks_done``, the backward rows and the carried walk
-state bitwise unchanged, and check the tilings the kernels take and the
-backward's shared memory. The kernels themselves are held to the plain
+forced to 0 at the pixels of the 8x4 warp rects its rect misses (the grid of
+rects from each tile's first pixel, rounded up past the tile's edge), which
+must leave colour, T, ``blocks_done``, the backward rows and the carried
+walk state bitwise unchanged, and check the tilings the kernels take (every
+tile edge from 1 to 64, every positive pair block), how a tile's rects map
+onto warps, and the backward's shared memory. The kernels themselves are held to the plain
 versions on the card (``tests/test_torch_gpu.py``).
 """
 
@@ -146,9 +148,11 @@ def test_rect_holds_jax_cull_rect():
 
 def _culled_alpha(px, py, mean_x, mean_y, conic_x, conic_y, conic_xy, opacity):
     """``gaussian_alpha`` of a walk culled by the kernels' warp rects: a
-    pair's alpha is invalid at every pixel of a warp rect (aligned to the
-    frame's multiples of ``cull.WARP_RECT``) that its alpha-bound rect
-    misses."""
+    pair's alpha is invalid at every pixel of a warp rect (the grid of
+    ``cull.WARP_RECT`` rects from each tile's first pixel, rounded up past
+    the tile's edge) that its alpha-bound rect misses. The plain versions
+    call it with pixel coordinates ``[T, 1, npix]``, pixel 0 each tile's
+    first."""
     ww, wh = cull.WARP_RECT
     at = gaussian_alpha(px, py, mean_x, mean_y, conic_x, conic_y, conic_xy, opacity)
     lead = torch.broadcast_tensors(mean_x, mean_y, conic_x, conic_y, conic_xy, opacity)
@@ -158,7 +162,8 @@ def _culled_alpha(px, py, mean_x, mean_y, conic_x, conic_y, conic_xy, opacity):
         rows[:, i] = v.reshape(-1)
     rows[:, B.FEAT_X_MIN:B.FEAT_Y_MAX + 1] = torch.tensor([-1e6, -1e6, 1e6, 1e6])
     rect = cull.pair_alpha_rect(rows).reshape(*lead[0].shape, 4)
-    wx0, wy0 = torch.floor(px / ww) * ww, torch.floor(py / wh) * wh
+    ox, oy = px[..., :1], py[..., :1]  # each tile's first pixel: the grid of rects starts there
+    wx0, wy0 = ox + torch.floor((px - ox) / ww) * ww, oy + torch.floor((py - oy) / wh) * wh
     meets = ((torch.maximum(rect[..., 0], wx0) < torch.minimum(rect[..., 2], wx0 + ww))
              & (torch.maximum(rect[..., 1], wy0) < torch.minimum(rect[..., 3], wy0 + wh)))
     return at._replace(valid=at.valid & meets)
@@ -210,6 +215,33 @@ def test_culled_walk_is_exact(binned_dense, monkeypatch, stop):
         assert (want[2] < -(-args[3] // cfg.pair_block)).any(), "some tile stops early"
 
 
+@pytest.mark.parametrize("tile,pair_block", [(12, 8), (20, 16), (4, 8), (40, 32)])
+def test_culled_walk_is_exact_on_padded_grid(monkeypatch, tile, pair_block):
+    """Tiles that are not a multiple of the 8x4 rect: the kernels round the
+    grid of rects up past the tile's edge, and a pair whose alpha-bound
+    rect meets only the part of a rect past the edge is still walked there
+    (at pixels no lane owns). The culled walk stays bitwise the plain walk,
+    early stop on and off."""
+    model = tgs.GaussianModel.from_arrays(_scene(6, 300, 2.5), device="cpu")
+    camera = CameraParams(**dataclasses.asdict(orbit_camera(0.15, width=WALK_W, height=WALK_H)))
+    base = tgs.RasterConfig(tile_size=tile, chunk_size=8, pair_block=pair_block, max_pairs=1 << 15)
+    with torch.no_grad():
+        prep = preprocess(model, camera, base)
+        bins = B.bin_gaussians(prep, WALK_W, WALK_H, tile, base.max_pairs, align=pair_block)
+    ntx = -(-WALK_W // tile)
+    tile_ids = torch.arange(ntx * -(-WALK_H // tile), dtype=torch.int32)
+    args = (B.pack_features(prep), bins.pair_gaussian, bins.tile_start, bins.tile_count, tile_ids)
+    for stop in (0.0, 1e-4):
+        cfg = dataclasses.replace(base, early_stop_transmittance=stop)
+        want = _walks(args, ntx, cfg)
+        with monkeypatch.context() as m:
+            m.setattr(raster_fwd, "gaussian_alpha", _culled_alpha)
+            m.setattr(raster_bwd, "gaussian_alpha", _culled_alpha)
+            got = _walks(args, ntx, cfg)
+        for name, g, w in zip(("color", "trans", "blocks_done", "rows", "carry rows", "carry out"), got, want):
+            assert torch.equal(g, w), (stop, name)
+
+
 def test_culling_removes_work(binned_dense):
     """On the dense scene the 8x4 warp rects skip a good share of the walked
     (warp, pair) evaluations."""
@@ -237,8 +269,11 @@ def test_cull_counts_match_brute_force():
 
 
 @pytest.mark.parametrize("tile,pair_block,ok", [(16, 8, True), (32, 128, True), (8, 128, True), (16, 512, True),
-                                                (16, 0, False), (12, 8, False), (4, 8, False), (64, 8, False)])
+                                                (16, 0, False), (12, 8, True), (4, 8, True), (64, 8, True),
+                                                (16, 4096, True), (1, 8, True), (0, 8, False), (65, 8, False)])
 def test_check_tiling(tile, pair_block, ok):
+    """The kernels take every tile edge from 1 to 64 and every positive pair
+    block; shared memory over ``MAX_SMEM`` is refused."""
     if ok:
         cull.check_tiling("k", tile, pair_block, 1024)
     else:
@@ -248,20 +283,56 @@ def test_check_tiling(tile, pair_block, ok):
         cull.check_tiling("k", 16, 8, cull.MAX_SMEM + 1)
 
 
-@pytest.mark.parametrize("tile,pair_block,round_pairs", [(8, 128, 128), (16, 8, 8), (16, 512, 32), (24, 128, 128),
-                                                          (32, 128, 128), (32, 256, 32), (32, 945, 32)])
+@pytest.mark.parametrize("tile,pair_block,round_pairs", [(8, 128, 128), (16, 8, 8), (16, 512, 256), (24, 128, 128),
+                                                          (32, 128, 128), (32, 256, 32), (32, 945, 32), (4, 8, 8),
+                                                          (12, 2048, 256), (40, 2048, 32), (64, 128, 128),
+                                                          (64, 4096, 32)])
 def test_tilings_fit_shared_memory(tile, pair_block, round_pairs):
-    """Tilings the first ports ran (pair_block up to 945 at tile 32) fit
-    both kernels' shared memory: the backward sums a whole batch per round
-    where its warp slots fit, else rounds of 32 pairs (``sum_round`` in
-    ``csrc/raster_bwd.cu``)."""
-    npix = tile * tile
-    assert raster_bwd._sum_round(npix, pair_block) == round_pairs
-    bwd = raster_bwd._smem_bytes(npix, pair_block)
-    assert bwd == cull.staging_bytes(pair_block) + npix // 32 * round_pairs * 9 * 4
+    """Every tiling fits both kernels' shared memory: the staging holds
+    sub-batches of at most ``SUB_ROWS`` rows whatever the pair block, and
+    the backward sums a whole sub-batch per round where the slots of its
+    warps (at most 32, however many pixels the tile has) fit, else rounds
+    of 32 pairs (``sum_round`` in ``csrc/raster_bwd.cu``)."""
+    warps = cull.warp_layout(tile)[2]
+    assert raster_bwd._sum_round(tile, pair_block) == round_pairs
+    bwd = raster_bwd._smem_bytes(tile, pair_block)
+    assert bwd == cull.staging_bytes(pair_block) + warps * round_pairs * 9 * 4
     for smem in (cull.staging_bytes(pair_block), bwd):
         cull.check_tiling("k", tile, pair_block, smem)
-    assert raster_bwd._smem_bytes(1024, 128) == 173056  # 25,600 B of staging, 147,456 of warp slots
+    assert raster_bwd._smem_bytes(32, 128) == 173056  # 25,600 B of staging, 147,456 of warp slots
+
+
+@pytest.mark.parametrize("tile,layout", [(1, (1, 1, 1)), (4, (1, 1, 1)), (12, (1, 1, 6)), (32, (1, 1, 32)),
+                                         (33, (1, 2, 25)), (40, (1, 2, 25)), (44, (2, 2, 18)), (64, (2, 2, 32))])
+def test_warp_layout(tile, layout):
+    """One pixel a thread up to 32 rects, then 1x2 and 2x2 rects a warp;
+    the rect grid covers the tile."""
+    fx, fy, warps = cull.warp_layout(tile)
+    assert (fx, fy, warps) == layout
+    rx, ry = cull.rect_grid(tile)
+    assert rx * 8 >= tile > (rx - 1) * 8 and ry * 4 >= tile > (ry - 1) * 4
+    assert -(-rx // fx) * -(-ry // fy) == warps <= 32
+
+
+@pytest.mark.parametrize("tile", [12, 20, 4])
+def test_cull_counts_follow_the_padded_grid(tile):
+    """``cull_counts`` on a tile that is not a multiple of the rect: the
+    pixels are the tile's, the warp rects those of the grid rounded up past
+    its edge that the rect meets (where a warp walks the pair)."""
+    rng = np.random.default_rng(tile)
+    lo = rng.integers(-10, 3 * tile, (200, 2))
+    rect = torch.tensor(np.concatenate([lo, lo + rng.integers(-2, 2 * tile, (200, 2))], 1), dtype=torch.float32)
+    ox = torch.tensor(rng.integers(0, 3, 200) * tile)
+    oy = torch.tensor(rng.integers(0, 2, 200) * tile)
+    pixels, warps = cull.cull_counts(rect, ox, oy, tile)
+    rx, ry = cull.rect_grid(tile)
+    for i in range(200):
+        x0, y0, x1, y1 = rect[i].tolist()
+        ox_i, oy_i = int(ox[i]), int(oy[i])
+        grid = [(x, y) for y in range(oy_i, oy_i + 4 * ry) for x in range(ox_i, ox_i + 8 * rx)
+                if x0 <= x < x1 and y0 <= y < y1]
+        assert int(pixels[i]) == sum(x < ox_i + tile and y < oy_i + tile for x, y in grid)
+        assert int(warps[i]) == len({((x - ox_i) // 8, (y - oy_i) // 4) for x, y in grid})
 
 
 def test_chip_smoke_counts_match_brute_force(binned_dense):

@@ -172,7 +172,7 @@ def test_backward_kernel_rejects_bad_inputs(binned):
     with pytest.raises(ValueError, match="blocks_done"):
         backward_tiles(*args, color, trans, color, trans, ntx, CFG, done.long())
     with pytest.raises(ValueError, match="not supported"):
-        backward_tiles(*args, color, trans, color, trans, ntx, dataclasses.replace(CFG, tile_size=4), done)
+        backward_tiles(*args, color, trans, color, trans, ntx, dataclasses.replace(CFG, tile_size=65), done)
 
 
 def _two_slices(args):
@@ -301,8 +301,8 @@ def _synthetic(kind, tile_size, pair_block, seed=0):
             cov = np.stack([np.full(count, 2500.0), np.zeros(count), np.full(count, 2500.0)], 1)
             det = cov[:, 0] * cov[:, 2]
             snap = np.array([8, 4])
-            lo = np.stack([ox + rng.integers(0, tile_size // 8, count) * 8,
-                           oy + rng.integers(0, tile_size // 4, count) * 4], 1) + rng.integers(-1, 2, (count, 2))
+            lo = np.stack([ox + rng.integers(0, -(-tile_size // 8), count) * 8,
+                           oy + rng.integers(0, -(-tile_size // 4), count) * 4], 1) + rng.integers(-1, 2, (count, 2))
             hi = lo + rng.integers(1, 3, (count, 2)) * snap + rng.integers(-1, 2, (count, 2))
         lo = np.clip(lo, 0, 2 * tile_size)
         hi = np.clip(hi, 0, 2 * tile_size)
@@ -323,7 +323,8 @@ def _synthetic(kind, tile_size, pair_block, seed=0):
             torch.arange(4, dtype=torch.int32))
 
 
-@pytest.mark.parametrize("tiling", [(16, 8), (32, 128), (8, 128), (32, 256)])
+@pytest.mark.parametrize("tiling", [(16, 8), (32, 128), (8, 128), (32, 256), (1, 8), (4, 8), (12, 8), (20, 128),
+                                    (33, 296), (48, 600), (64, 128), (64, 2048)])
 @pytest.mark.parametrize("kind", ["warp_edges", "corner", "ragged", "many_batches", "whole_tile"])
 def test_culled_kernels_match_plain(device, kind, tiling):
     """Both kernels and their carry forms on the culling and staging edge
@@ -332,7 +333,10 @@ def test_culled_kernels_match_plain(device, kind, tiling):
     runs of each bitwise equal. Tile 8 with pair_block 128 has each thread
     stage two rows of a batch; at tile 32 with pair_block 256 the
     backward's warp slots of a whole batch exceed shared memory, so it sums
-    in rounds of 32 pairs."""
+    in rounds of 32 pairs. Tiles 1, 4, 12, 20 and 33 round the warp-rect
+    grid up past the tile's edge; 33 and 48 give each thread two and four
+    pixels, 64 four; pair blocks 296, 600 and 2048 are staged in sub-batches
+    of at most 256 rows, the early-stop vote still per pair block."""
     tile_size, pair_block = tiling
     args = tuple(t.to(device) for t in _synthetic(kind, tile_size, pair_block))
     width = height = 2 * tile_size

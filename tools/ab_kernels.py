@@ -1,0 +1,150 @@
+#!/usr/bin/env python3
+"""Compare two checkouts' CUDA compositors alone, in one process on one card.
+
+Usage: ``python3 tools/ab_kernels.py PARENT_DIR [--rounds 8] [--out DIR]``
+from the root of the change's checkout, on a machine with a CUDA card and
+``nvcc``. It builds ``gsplat_tpu_torch/csrc/raster_fwd.cu`` and
+``raster_bwd.cu`` of both checkouts with the change's ``build.NVCC_FLAGS``
+(one ``nvcc`` per source, all started together) into ``--out`` (default a
+temporary directory), prints each kernel's registers and spill bytes from
+the ``-Xptxas -v`` report, then calls both sides through ``ctypes`` on the
+same inputs: the headline scene of ``chip_smoke.py`` (1M gaussians, 1920x1080,
+tile 32, pair block 128, capacity 1.5x the demand) binned by the change's
+Python, random cotangents, and a carry state from the single pass. It
+checks that the change's forward, backward and both carry forms are bitwise
+the parent's, and times each kernel with CUDA events (median of 20
+launches) over ``--rounds`` rounds that alternate which side runs first.
+The last line is one JSON object: each kernel's median, quartiles and runs
+per side, the share of rounds the change wins, and the card's name and
+power limit. Both sides must keep the C entry points' signatures.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import os
+import statistics
+import subprocess
+import sys
+import tempfile
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("parent")
+    parser.add_argument("--rounds", type=int, default=8)
+    parser.add_argument("--out", default=None)
+    opts = parser.parse_args()
+    sys.path.insert(0, HERE)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("ab_kernels: no CUDA device", file=sys.stderr)
+        return 2
+    import chip_smoke as cs
+    import gsplat_tpu_torch as gs
+    from gsplat_tpu_torch.kernels import build
+    from gsplat_tpu_torch.kernels import raster_bwd as RB
+    from gsplat_tpu_torch.kernels import raster_fwd as RF
+    from gsplat_tpu_torch.ops.compositing import MAX_GAUSSIAN_DENSITY_F32, MIN_ALPHA_F32
+
+    out_dir = opts.out or tempfile.mkdtemp(prefix="ab_kernels_")
+    os.makedirs(out_dir, exist_ok=True)
+    sides = {"parent": os.path.join(opts.parent, "gsplat_tpu_torch", "csrc"),
+             "change": os.path.join(HERE, "gsplat_tpu_torch", "csrc")}
+    procs = []
+    for side, csrc in sides.items():
+        for name in ("raster_fwd", "raster_bwd"):
+            lib = os.path.join(out_dir, f"{side}_{name}.so")
+            cmd = [build.nvcc_path(), *build.NVCC_FLAGS, "-o", lib, os.path.join(csrc, f"{name}.cu")]
+            procs.append((side, name, lib, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                                            text=True)))
+    fns, resources = {}, {}
+    for side, name, lib, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"{side} {name}: nvcc exited {proc.returncode}\n{log}")
+        resources[f"{side} {name}"] = cs.ptxas_by_kernel(log)
+        fn = getattr(ctypes.CDLL(lib), f"gsplat_{name}")
+        fn.argtypes = list((RF if name == "raster_fwd" else RB)._ARGTYPES)
+        fn.restype = ctypes.c_int
+        fns[side, name] = fn
+    print(json.dumps({"resources": resources}), flush=True)
+
+    dev = torch.device("cuda")
+    model = cs.build_scene(cs.NUM_GAUSSIANS, 0.0, dev)
+    cam0 = cs.bench_camera(cs.WIDTH, cs.HEIGHT)
+    with torch.inference_mode():
+        probe = gs.RasterConfig(tile_size=32, chunk_size=32, max_pairs=1 << 20)
+        demand = int(gs.binning_stats(model, gs.CameraArrays.from_params(cam0, device=dev), cs.WIDTH, cs.HEIGHT,
+                                      probe)["pair_demand"])
+        cfg = gs.RasterConfig(tile_size=32, chunk_size=32, pair_block=128, sh_degree=3,
+                              max_pairs=max(int(demand * 1.5) // 128 * 128, cs.CAPACITY_FLOOR))
+        args, _, ntx = cs.binned_inputs(model, cam0, cfg)
+    del model
+    num_t, npix = args[4].shape[0], cfg.tile_size ** 2
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    def fwd(side, carry=(None, None)):
+        color = torch.empty((num_t, npix, 3), device=dev)
+        trans = torch.empty((num_t, npix), device=dev)
+        done = torch.empty((num_t,), dtype=torch.int32, device=dev)
+        err = fns[side, "raster_fwd"](
+            *(ptr(a) for a in args), *(ptr(c) for c in carry), num_t, ntx, cfg.tile_size, cfg.pair_block, 0.0,
+            cs.WIDTH, cs.HEIGHT, MIN_ALPHA_F32, MAX_GAUSSIAN_DENSITY_F32, ptr(color), ptr(trans), ptr(done), stream)
+        if err:
+            raise RuntimeError(f"{side} forward: cudaError_t {err}")
+        return color, trans, done
+
+    first = fwd("parent")
+    color, trans, done = first
+    g_color, g_trans = cs.random_cotangents(color, trans, seed=3)
+    carry = (color * 0.5, torch.sqrt(trans))  # a state to resume from
+    state = RB.walk_state(color, trans, g_color, g_trans)
+
+    def bwd(side, carry_in=None):
+        rows = torch.zeros((args[1].shape[0], RB.NUM_GRAD), device=dev)
+        c_out = None if carry_in is None else torch.empty_like(carry_in)
+        outs = (None, None, g_color, None) if carry_in is not None else (color, trans, g_color, g_trans)
+        err = fns[side, "raster_bwd"](
+            *(ptr(a) for a in args), ptr(done), *(ptr(t) for t in outs), ptr(carry_in), num_t, ntx, cfg.tile_size,
+            cfg.pair_block, MIN_ALPHA_F32, MAX_GAUSSIAN_DENSITY_F32, ptr(rows), ptr(c_out), stream)
+        if err:
+            raise RuntimeError(f"{side} backward: cudaError_t {err}")
+        return rows, c_out
+
+    kernels = {"raster_fwd": lambda side: fwd(side), "raster_bwd": lambda side: bwd(side)[:1],
+               "raster_fwd_carry": lambda side: fwd(side, carry), "raster_bwd_carry": lambda side: bwd(side, state)}
+    bitwise = {}
+    for name, run in kernels.items():
+        a, b = run("parent"), run("change")
+        torch.cuda.synchronize()
+        bitwise[name] = all(torch.equal(x, y) for x, y in zip(a, b))
+    times = {(name, side): [] for name in kernels for side in ("parent", "change")}
+    for r in range(opts.rounds):
+        for side in ("parent", "change") if r % 2 == 0 else ("change", "parent"):
+            for name, run in kernels.items():
+                times[name, side].append(cs.cuda_ms(lambda: run(side), 20))
+
+    def stats(v):
+        q = statistics.quantiles(v, n=4)
+        return {"median": statistics.median(v), "quartiles": [q[0], q[2]], "runs": v}
+
+    result = {"bitwise": bitwise, "nvidia_smi": cs.nvidia_smi_line(), "rounds": opts.rounds}
+    for name in kernels:
+        p, c = times[name, "parent"], times[name, "change"]
+        result[name] = {"parent": stats(p), "change": stats(c),
+                        "change_wins": sum(x < y for x, y in zip(c, p)) / len(p)}
+    print(json.dumps(result), flush=True)
+    return 0 if all(bitwise.values()) else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())
