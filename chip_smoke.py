@@ -94,9 +94,10 @@ then runs twelve phases, each printing one JSON line:
      request and a depth-sliced request, each frame bitwise phase 3's tile-32
      frame; the forward kernel bitwise its plain version, the backward and
      both carry kernels (first slice) against theirs, each timed with both
-     bounds; the feature gradient with the exact pair reduction within the
-     backward tolerance of tile 32's; at tile 64 a one-step ``fit``,
-     unsliced and sliced, its loss bitwise tile 32's. Then phase 2's frame
+     bounds; the feature gradient with the exact pair reduction (bitwise
+     repeatable) within the backward tolerance of tile 32's; at tile 64 a
+     one-step ``fit``, unsliced and sliced, its loss bitwise tile 32's.
+     Then phase 2's frame
      at tiles 4, 12, 20, 40 and 64 by pair blocks 8, 128 and 2048, early
      stop 0 and 1e-4: all four kernels against their plain versions (the
      carry forms on every depth slice), each twice bitwise.
@@ -1486,7 +1487,8 @@ def tilings_phase(cfg, frame32, dev, t_main: float):
     request at ``TILING_SLICE`` pairs a slice, bitwise the same frame, and
     both carry kernels on its first slice; every kernel timed with its
     bounds; the feature gradient of a seeded image-space loss with the exact
-    pair reduction within the backward tolerance of tile 32's; at tile 64 a
+    pair reduction (tile 32's twice, bitwise equal) within the backward
+    tolerance of tile 32's; at tile 64 a
     one-step ``Trainer.fit``, unsliced and sliced, its loss bitwise tile
     32's. (b) Phase 2's scene and frame at every tile of
     ``TILING_SMALL_TILES`` and pair block of ``TILING_SMALL_BLOCKS``, early
@@ -1530,7 +1532,10 @@ def tilings_phase(cfg, frame32, dev, t_main: float):
     target = torch.full((HEIGHT, WIDTH, 3), 0.25, device=dev)
     train = gs.TrainConfig(ssim_weight=0.2, steps=1, log_every=1)
     w_img, w_trans = random_cotangents(*frame32, seed=6)
-    exact32 = frame_feature_grad(model, cam0, dataclasses.replace(cfg, exact_grad_reduction=True), w_img, w_trans)
+    exact_cfg = dataclasses.replace(cfg, exact_grad_reduction=True)
+    exact32 = frame_feature_grad(model, cam0, exact_cfg, w_img, w_trans)
+    check(torch.equal(exact32, frame_feature_grad(model, cam0, exact_cfg, w_img, w_trans)),
+          "the exact pair reduction is bitwise repeatable")
     loss32 = gs.Trainer(raster=cfg, train=train, show_progress=False).fit(_clone(model), [(cam0, target)])[1][0]["loss"]
     for ts in TILING_FULL:
         with torch.inference_mode():

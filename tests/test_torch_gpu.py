@@ -164,6 +164,22 @@ def test_render_grads_on_card_match_cpu(device):
         torch.testing.assert_close(got.cpu(), want, rtol=2e-3, atol=5e-5 * float(want.abs().max()))
 
 
+def test_exact_grad_reduction_on_card(device):
+    """``exact_grad_reduction``: autograd through ``render`` on the card
+    twice, bitwise equal (the f64 reduction uses no atomics), and against
+    the CPU's with the same flag at the tolerance above."""
+    model, camera = scene(device, n=300, grow=0.0, seed=7)
+    cpu_model = tgs.GaussianModel.from_arrays(model.to_arrays(), device="cpu")
+    cfg = dataclasses.replace(CFG, exact_grad_reduction=True)
+    grads = []
+    for m in (model, model, cpu_model):
+        img, trans = tgs.render(m, camera, cfg)
+        grads.append(torch.autograd.grad((img * img).sum() + trans.sum(), list(m.parameters())))
+    assert all(torch.equal(a, b) for a, b in zip(grads[0], grads[1]))
+    for got, want in zip(grads[0], grads[2]):
+        torch.testing.assert_close(got.cpu(), want, rtol=2e-3, atol=5e-5 * float(want.abs().max()))
+
+
 def test_backward_kernel_rejects_bad_inputs(binned):
     args, ntx, _ = binned
     color, trans, done = forward_tiles(*args, ntx, CFG)
