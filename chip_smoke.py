@@ -90,17 +90,20 @@ then runs twelve phases, each printing one JSON line:
      ``evaluate``'s ``metrics.json`` equal to phase 10's, a 3-step
      ``finetune`` PLY bitwise a 1x1 ``ParallelTrainer``'s.
  12. tilings: the kernels at other tilings (``tilings_phase``). The phase-3
-     model at tiles 16 and 64 (capacity 1.5x each tiling's demand): a
-     request and a depth-sliced request, each frame bitwise phase 3's tile-32
-     frame; the forward kernel bitwise its plain version, the backward and
-     both carry kernels (first slice) against theirs, each timed with both
-     bounds; the feature gradient with the exact pair reduction (bitwise
-     repeatable) within the backward tolerance of tile 32's; at tile 64 a
+     model at tiles 16, 64 and 128 (capacity 1.5x each tiling's demand;
+     128 runs as 2x2 pixel groups of one thread block each): a request and
+     a depth-sliced request, each frame bitwise phase 3's tile-32 frame; the
+     forward kernel bitwise its plain version, the backward and both carry
+     kernels (first slice) against theirs, each timed with both bounds; the
+     feature gradient with the exact pair reduction (bitwise repeatable)
+     within the backward tolerance of tile 32's; at tiles 64 and 128 a
      one-step ``fit``, unsliced and sliced, its loss bitwise tile 32's.
-     Then phase 2's frame
-     at tiles 4, 12, 20, 40 and 64 by pair blocks 8, 128 and 2048, early
-     stop 0 and 1e-4: all four kernels against their plain versions (the
-     carry forms on every depth slice), each twice bitwise.
+     Then phase 2's frame at tiles 4, 12, 20, 40, 64, 65, 100, 128 and 256
+     (above 64 as pixel groups; at 256 some groups lie wholly outside the
+     frame) by pair blocks 8, 128 and 2048, early stop 0 and 1e-4: all
+     four kernels against their plain versions (the carry forms on every
+     depth slice), each twice bitwise; above 64 with early stop on, every
+     forward call with its resume launch.
 
 A kernel's bound counts the work its inputs need. ``bound_ms`` charges the
 gate (and its expf) only at the walked pair-pixels inside each pair's
@@ -202,13 +205,18 @@ MESH_POSES = [("bench", 0.0), ("yaw+0.05", 0.05), ("yaw-0.05", -0.05), ("yaw+0.1
 MESH_PAD = (200, 150)
 MESH_FIT_STEPS = 6
 MESH_TIMEOUT_S = 600  # each collective's limit, and the gloo world's from spawn to join
-# Tilings (phase 12): the headline at tiles 16 and 64 beside phase 3's 32,
-# its depth-sliced path at 2^17 pairs a slice; phase 2's scene and frame at
-# every tile and pair block below.
-TILING_FULL = (16, 64)
+# Tilings (phase 12): the headline at tiles 16, 64 and 128 beside phase 3's
+# 32, its depth-sliced path at 2^17 pairs a slice; phase 2's scene and frame
+# at every tile and pair block below (above 64: pixel groups).
+TILING_FULL = (16, 64, 128)
 TILING_SLICE = 1 << 17
 TILING_SMALL_N, TILING_SMALL_FRAME = 20_000, (256, 192)
-TILING_SMALL_TILES = (4, 12, 20, 40, 64)
+TILING_SMALL_TILES = (4, 12, 20, 40, 64, 65, 100, 128, 256)
+# Above 64 the frame takes fewer, larger splats (the bench distribution at
+# scale shift 3.5): every 64-pixel group saturates within a few pair blocks,
+# so groups of one tile stop at different blocks and the resume has work; a
+# tile holds all its pairs, whose count sets the plain versions' time.
+TILING_LARGE_N, TILING_LARGE_SHIFT = 6_000, 3.5
 TILING_SMALL_BLOCKS = (8, 128, 2048)
 
 
@@ -246,16 +254,18 @@ def ptxas_resources(lines) -> dict:
 
 def ptxas_by_kernel(log: str) -> dict:
     """:func:`ptxas_resources` of each kernel entry in a ``-Xptxas -v``
-    report, keyed by its template arguments: the warp block ``FXxFY``, and
-    ``split`` where pair blocks are staged in several sub-batches."""
+    report, keyed by its template arguments: the warp block ``FXxFY``,
+    ``split`` where pair blocks are staged in several sub-batches, and
+    ``groups`` where a block is a pixel group of a tile above 64."""
     import re
 
     entries = {}
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            args = re.search(r"ILi(\d+)ELi(\d+)ELb(\d)E", m.group(1))
-            name = f"{args.group(1)}x{args.group(2)}{' split' if args.group(3) == '1' else ''}" if args else m.group(1)
+            args = re.search(r"ILi(\d+)ELi(\d+)ELb(\d)E(?:Lb(\d)E)?", m.group(1))
+            name = (f"{args.group(1)}x{args.group(2)}{' split' if args.group(3) == '1' else ''}"
+                    f"{' groups' if args.group(4) == '1' else ''}") if args else m.group(1)
             entries[name] = []
         elif entries:
             entries[name].append(line)
@@ -414,6 +424,7 @@ def pair_pixels(args, n_tiles_x: int, cfg, blocks_done=None, chunk: int = 1 << 1
     feat, pair_gaussian, tile_start, tile_count, tile_ids = args
     dev = feat.device
     ts = cfg.tile_size
+    chunk = min(chunk, max((1 << 25) // ts ** 2, 1))  # at most 2^25 pair-pixels a chunk
     walked = tile_count.long()
     if blocks_done is not None:
         walked = torch.minimum(walked, blocks_done.long() * cfg.pair_block)
@@ -1502,30 +1513,36 @@ def tilings_phase(cfg, frame32, dev, t_main: float):
     import torch
 
     import gsplat_tpu_torch as gs
+    from gsplat_tpu_torch.kernels import cull
     from gsplat_tpu_torch.kernels.raster_bwd import backward_tiles, backward_tiles_carry, backward_tiles_plain
     from gsplat_tpu_torch.kernels.raster_fwd import forward_tiles, forward_tiles_carry, forward_tiles_plain
     from gsplat_tpu_torch.render.tile_torch import tiles_to_image
 
     kernels = {"raster_fwd": forward_tiles, "raster_bwd": backward_tiles, "raster_fwd_carry": forward_tiles_carry,
                "raster_bwd_carry": backward_tiles_carry}
+    resumable = (forward_tiles, forward_tiles_carry)
     launches = dict.fromkeys(kernels, 0)
 
     def entry(fn):
         """One call of the port's entry points, every count set to 0 just
-        before it; returns (its result, the launches it made)."""
+        before it; returns (its result, the launches it made). Every call
+        here has early stop off, so it makes no resume launch."""
         for k in kernels.values():
             k.launches = 0
+        for k in resumable:
+            k.resume_launches = 0
         result = fn()
         torch.cuda.synchronize()
         made = {name: k.launches for name, k in kernels.items()}
         for name, n in made.items():
             launches[name] += n
+        check(all(k.resume_launches == 0 for k in resumable), "no resume launch with early stop off")
         return result, made
 
     def only(made, **want):
         return made == {**dict.fromkeys(kernels, 0), **want}
 
-    out = {"full": {}, "small": {}}
+    out = {"full": {}, "small": {}, "small_seconds": {}}
     model = build_scene(NUM_GAUSSIANS, 0.0, dev)
     cam0 = bench_camera(WIDTH, HEIGHT)
     cams = gs.CameraArrays.from_params(cam0, device=dev)
@@ -1538,6 +1555,7 @@ def tilings_phase(cfg, frame32, dev, t_main: float):
           "the exact pair reduction is bitwise repeatable")
     loss32 = gs.Trainer(raster=cfg, train=train, show_progress=False).fit(_clone(model), [(cam0, target)])[1][0]["loss"]
     for ts in TILING_FULL:
+        t_tile = time.perf_counter()
         with torch.inference_mode():
             demand = int(gs.binning_stats(model, cams, WIDTH, HEIGHT, dataclasses.replace(cfg, tile_size=ts))["pair_demand"])
             tcfg = dataclasses.replace(cfg, tile_size=ts, max_pairs=max(int(demand * 1.5) // 128 * 128, CAPACITY_FLOOR))
@@ -1583,7 +1601,7 @@ def tilings_phase(cfg, frame32, dev, t_main: float):
             del feat, s_color, s_tr, srec
         grad = frame_feature_grad(model, cam0, dataclasses.replace(tcfg, exact_grad_reduction=True), w_img, w_trans)
         rec["exact_d_feat_vs_tile32"] = rows_error(grad, exact32, f"tile {ts} d_feat against tile 32's (exact reduction)")
-        if ts == 64:
+        if ts >= 64:
             (_, history), made = entry(lambda: gs.Trainer(raster=tcfg, train=train, show_progress=False).fit(
                 _clone(model), [(cam0, target)]))
             check(only(made, raster_fwd=1, raster_bwd=1), f"tile {ts} fit step launches: {made}")
@@ -1595,18 +1613,21 @@ def tilings_phase(cfg, frame32, dev, t_main: float):
                   f"tile {ts} sliced fit step launches: {made}")
             check(s_history[0]["loss"] == loss32, f"tile {ts} sliced step loss is tile 32's")
             rec.update({"step_loss": history[0]["loss"], "sliced_step_launches": made})
+        rec["seconds"] = time.perf_counter() - t_tile
         out["full"][str(ts)] = rec
         torch.cuda.empty_cache()
     out["tile32_step_loss"] = loss32
     del model, exact32
     torch.cuda.empty_cache()
 
-    small = build_scene(TILING_SMALL_N, 2.5, dev)
+    scenes = {False: build_scene(TILING_SMALL_N, 2.5, dev), True: build_scene(TILING_LARGE_N, TILING_LARGE_SHIFT, dev)}
     sw, sh = TILING_SMALL_FRAME
     cam_s = bench_camera(sw, sh)
     for ts in TILING_SMALL_TILES:
+        small = scenes[ts > cull.MAX_GROUP]
         ntx = -(-sw // ts)
         n_tiles = ntx * -(-sh // ts)
+        t_tile = time.perf_counter()
         for blk in TILING_SMALL_BLOCKS:
             base = gs.RasterConfig(tile_size=ts, chunk_size=8, pair_block=blk, max_pairs=1 << 23)
             with torch.inference_mode():
@@ -1621,9 +1642,12 @@ def tilings_phase(cfg, frame32, dev, t_main: float):
                 scfg = dataclasses.replace(base, early_stop_transmittance=stop)
                 what = f"tile {ts} / block {blk} / early stop {stop}"
                 with torch.inference_mode():
+                    resumed = forward_tiles.resume_launches
                     got = forward_tiles(*args, ntx, scfg, sw, sh)
                     again = forward_tiles(*args, ntx, scfg, sw, sh)
                     torch.cuda.synchronize()
+                    check(forward_tiles.resume_launches - resumed == (2 if ts > 64 and stop > 0 else 0),
+                          f"{what}: resume launches")
                     want = forward_tiles_plain(*args, ntx, scfg, sw, sh)
                     check(all(torch.equal(g, w) and torch.equal(g, a) for g, a, w in zip(got, again, want)),
                           f"{what}: forward twice bitwise its plain version")
@@ -1648,6 +1672,7 @@ def tilings_phase(cfg, frame32, dev, t_main: float):
                 del got, again, want, outs, rows, rows2, p_rows, feat, color, trans, srec
             out["small"][f"{ts}x{blk}"] = rec
             del args, bins
+        out["small_seconds"][str(ts)] = time.perf_counter() - t_tile
     check(any(rec["stop_0.0001"]["tiles_stopped_early"] > 0 for rec in out["small"].values()),
           "the small sweep exercises the early stop")
     out["elapsed_s"] = time.perf_counter() - t_main  # since main() began, the build included

@@ -16,10 +16,10 @@ Differences from the JAX CLI:
   pallas|jnp``: the port dispatches by the device of its tensors, so the
   model and the targets live on that device. ``cuda`` without a card fails;
   nothing falls back to the CPU.
-* On the card, ``--tile-size`` must be from 1 to 64 (a tile is one thread
-  block of the compositors, ``kernels/cull.py``); the JAX CLI takes any
-  positive size. ``--slice-pairs`` must be a ``pair_block`` multiple and at
-  least the frame's tile count.
+* ``--tile-size`` takes any positive edge, as the JAX CLI does (on the
+  card a tile above 64 runs as pixel groups of one thread block each,
+  ``kernels/cull.py``). ``--slice-pairs`` must be a ``pair_block`` multiple
+  and at least the frame's tile count.
 * ``--mesh DATAxTILE`` runs one process (rank) per mesh position: under
   ``torchrun --nproc-per-node DATA*TILE`` (a ``1x1`` mesh started without it
   forms a world of one by itself). ``--device cuda`` takes one card per
@@ -111,7 +111,7 @@ def _load_views(input_dir, scale_factor, device):
 def _raster_config(tile_size, chunk_size, max_pairs, early_stop, device, slice_pairs=0) -> RasterConfig:
     """The settings of the raster options, checked before any scene I/O:
     a ``pair_block`` multiple for ``--slice-pairs`` and, on the card, a
-    tiling the compositors take (a tile edge from 1 to 64). The
+    tiling the compositors take (a positive tile edge). The
     depth-sliced path reuses the slice size as its compact reduction
     capacity (``render/sliced.py`` falls back exactly on overflow)."""
     from gsplat_tpu_torch.kernels import cull
@@ -161,7 +161,7 @@ _COMMON = [
     click.option("--scene-index", type=int, default=0),
     click.option("--scale-factor", type=int, default=2),
     click.option("--tile-size", type=int, default=32,
-                 help="pixel tile edge (on the card: 1 to 64)"),
+                 help="pixel tile edge (positive; on the card above 64 as pixel groups)"),
     click.option("--chunk-size", type=int, default=32, help="gaussians per inner step"),
     click.option("--max-pairs", type=int, default=1 << 22, help="tile/gaussian pair capacity"),
     click.option("--early-stop", type=float, default=0.0,

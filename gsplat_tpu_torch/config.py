@@ -34,9 +34,10 @@ class RasterConfig:
     """Rasterization settings.
 
     Attributes:
-      tile_size: pixel tile edge; one CUDA thread block composites one
-        tile, each thread owning one pixel (two or four above 1024 pixels).
-        The kernels take 1 to 64; the plain versions any positive size.
+      tile_size: pixel tile edge, any positive size. Up to 64 one CUDA
+        thread block composites one tile, each thread owning one pixel
+        (two or four above 1024 pixels); a larger tile is cut into pixel
+        groups of at most 64 a side, one thread block each.
       chunk_size: pairs whose alphas the plain version evaluates at once.
       pair_block: pairs per block of the early-stop test (it runs once
         per block), and the alignment of every tile's pair segment (binning

@@ -63,6 +63,15 @@
 // shared memory, as at tile 32 from pair_block 171 on; then it is 32 pairs.
 // Rows past a tile's blocks_done, and rows of alignment pads, are never
 // written: the caller zero-fills the output.
+//
+// Tiles of edge above 64 (kGroups): each pixel group is one block (tiles x
+// groups blocks; raster_common.cuh BlockPixels), and every group walks to
+// its tile's blocks_done. A block's per-pair sums are over its group's
+// pixels, in the order above: group 0 writes them to pair_grads, group g >
+// 0 to its partial rows partials[g - 1] ([G - 1, P, 9], zero-filled), and
+// the caller adds the partials to pair_grads in group order, so the rows
+// are bitwise repeatable. The carry state is per pixel: each group reads
+// and writes its own pixels.
 
 #include <cuda_runtime.h>
 
@@ -164,8 +173,9 @@ __device__ __forceinline__ void pixel_terms(const PixelStep& p, const float* row
 }
 
 // FX x FY: the rects of a warp (warp_layout in raster_common.cuh); kSplit:
-// pair blocks staged in several sub-batches (Staging).
-template <int FX, int FY, bool kSplit>
+// pair blocks staged in several sub-batches (Staging); kGroups: a block is
+// a pixel group of a larger tile (BlockPixels).
+template <int FX, int FY, bool kSplit, bool kGroups>
 __global__ void __launch_bounds__(1024) raster_bwd_kernel(
     const float* __restrict__ feat,          // [N+1, 16]; row N is zero
     const int* __restrict__ pair_gaussian,   // [P]
@@ -181,22 +191,27 @@ __global__ void __launch_bounds__(1024) raster_bwd_kernel(
     int n_tiles_x, int tile_size, int pair_block, int round_pairs,
     float min_alpha, float max_alpha,
     float* __restrict__ pair_grads,          // [P, 9], zero-filled
-    float* __restrict__ carry_out)           // [T, 2, npix], or null
+    float* __restrict__ carry_out,           // [T, 2, npix], or null
+    GroupLayout gl,                          // kGroups: the tile's groups
+    float* __restrict__ partials,            // kGroups: [G - 1, P, 9], zero-filled
+    int num_pairs)                           // kGroups: P
 {
   constexpr int kSubs = FX * FY;
   extern __shared__ __align__(16) float smem[];
   float* red = smem + staging_bytes(pair_block) / sizeof(float);  // [warps][round_pairs][kGrad]
-  const int t = blockIdx.x;
+  const BlockPixels<kGroups> blk(tile_ids, n_tiles_x, tile_size, gl);
+  const int t = blk.t;
   const int lin = threadIdx.x;
   const int lane = lin & 31;
   const int warp = lin >> 5;
-  const int npix = tile_size * tile_size;
+  const PixIndex<kGroups> npix = (PixIndex<kGroups>)tile_size * tile_size;
   const int start = tile_start[t];
   const int count = tile_count[t];
-  const TileGrid grid = tile_grid(tile_ids[t], n_tiles_x, tile_size);
+  const TileGrid& grid = blk.grid;
   const TilePixels<FX, FY> me = tile_pixels<FX, FY>(grid);
   const int nblocks = (count + pair_block - 1) / pair_block;
   const int walk = blocks_done ? min(blocks_done[t], nblocks) : nblocks;
+  float* const grads = kGroups && blk.g > 0 ? partials + (size_t)(blk.g - 1) * num_pairs * kGrad : pair_grads;
 
   const size_t base = (size_t)t * npix, cbase = (size_t)t * 2 * npix;
   float g0[kSubs], g1[kSubs], g2[kSubs], S[kSubs], T[kSubs];
@@ -204,9 +219,9 @@ __global__ void __launch_bounds__(1024) raster_bwd_kernel(
   for (int i = 0; i < kSubs; ++i) {
     g0[i] = g1[i] = g2[i] = S[i] = 0.0f;
     T[i] = 1.0f;
-    if (!me.owns(i, grid, tile_size)) continue;
-    const size_t p = base + me.pix(i, grid, tile_size);
-    const size_t q = cbase + me.pix(i, grid, tile_size);
+    if (!blk.owns(me, i, tile_size)) continue;
+    const size_t p = base + blk.pix(me, i, tile_size);
+    const size_t q = cbase + blk.pix(me, i, tile_size);
     g0[i] = g_color[p * 3 + 0];
     g1[i] = g_color[p * 3 + 1];
     g2[i] = g_color[p * 3 + 2];
@@ -282,7 +297,7 @@ __global__ void __launch_bounds__(1024) raster_bwd_kernel(
       // Row r0 + i, column c: the slots of the warps that own a rect in the
       // pair's span, in warp order (the other warps did not walk the pair:
       // exact zeros).
-      float* rows = pair_grads + (size_t)(start + st.first(s) + r0) * kGrad;
+      float* rows = grads + (size_t)(start + st.first(s) + r0) * kGrad;
       for (int k = lin; k < m * kGrad; k += blockDim.x) {
         const int i = k / kGrad, c = k - i * kGrad;
         const unsigned span = st.span(s, r0 + i);
@@ -301,28 +316,71 @@ __global__ void __launch_bounds__(1024) raster_bwd_kernel(
   if (carry_out) {
 #pragma unroll
     for (int i = 0; i < kSubs; ++i) {
-      if (!me.owns(i, grid, tile_size)) continue;
-      const size_t q = cbase + me.pix(i, grid, tile_size);
+      if (!blk.owns(me, i, tile_size)) continue;
+      const size_t q = cbase + blk.pix(me, i, tile_size);
       carry_out[q] = S[i];
       carry_out[q + npix] = T[i];
     }
   }
 }
 
-using BwdKernel = decltype(&raster_bwd_kernel<1, 1, false>);
+using BwdKernel = decltype(&raster_bwd_kernel<1, 1, false, false>);
 
-// The instantiation for a warp layout and pair block.
-BwdKernel pick(const WarpLayout& l, int pair_block) {
-  if (pair_block > kSubRows) {
-    return l.fx == 1 ? (l.fy == 1 ? &raster_bwd_kernel<1, 1, true> : &raster_bwd_kernel<1, 2, true>) : &raster_bwd_kernel<2, 2, true>;
+// The instantiation for a warp layout and pair block. Groups have edges in
+// (32, 64], whose layouts are 1x2 or 2x2 rects a warp: only those are
+// instantiated with kGroups (null for 1x1).
+BwdKernel pick(const WarpLayout& l, int pair_block, bool groups) {
+  if (groups) {
+    if (pair_block > kSubRows)
+      return l.fx == 1 ? (l.fy == 1 ? nullptr : &raster_bwd_kernel<1, 2, true, true>) : &raster_bwd_kernel<2, 2, true, true>;
+    return l.fx == 1 ? (l.fy == 1 ? nullptr : &raster_bwd_kernel<1, 2, false, true>) : &raster_bwd_kernel<2, 2, false, true>;
   }
-  return l.fx == 1 ? (l.fy == 1 ? &raster_bwd_kernel<1, 1, false> : &raster_bwd_kernel<1, 2, false>) : &raster_bwd_kernel<2, 2, false>;
+  if (pair_block > kSubRows) {
+    return l.fx == 1 ? (l.fy == 1 ? &raster_bwd_kernel<1, 1, true, false> : &raster_bwd_kernel<1, 2, true, false>) : &raster_bwd_kernel<2, 2, true, false>;
+  }
+  return l.fx == 1 ? (l.fy == 1 ? &raster_bwd_kernel<1, 1, false, false> : &raster_bwd_kernel<1, 2, false, false>) : &raster_bwd_kernel<2, 2, false, false>;
+}
+
+// Launches num_tiles * G blocks of the tile's group layout (G = 1 without
+// groups); see the entry points below.
+int launch(const void* feat, const void* pair_gaussian, const void* tile_start, const void* tile_count,
+           const void* tile_ids, const void* blocks_done, const void* color, const void* trans,
+           const void* g_color, const void* g_trans, const void* carry_in, int num_tiles, int n_tiles_x,
+           int tile_size, int pair_block, float min_alpha, float max_alpha, void* pair_grads, void* carry_out,
+           void* stream, bool groups, void* partials, int num_pairs) {
+  if (num_tiles == 0) return 0;
+  if (tile_size < 1 || pair_block < 1) return (int)cudaErrorInvalidValue;
+  const GroupLayout gl = group_layout(tile_size);
+  if ((gl.n > 1) != groups) return (int)cudaErrorInvalidValue;
+  const WarpLayout layout = warp_layout(gl.edge);
+  if (layout.fx == 0) return (int)cudaErrorInvalidValue;
+  const BwdKernel kernel = pick(layout, pair_block, groups);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  const int round_pairs = sum_round(layout.warps, pair_block);
+  const size_t smem = staging_bytes(pair_block) + (size_t)layout.warps * round_pairs * kGrad * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const long long blocks = (long long)num_tiles * gl.n * gl.n;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, layout.warps * 32, smem, (cudaStream_t)stream>>>(
+      static_cast<const float*>(feat), static_cast<const int*>(pair_gaussian),
+      static_cast<const int*>(tile_start), static_cast<const int*>(tile_count),
+      static_cast<const int*>(tile_ids), static_cast<const int*>(blocks_done),
+      static_cast<const float*>(color), static_cast<const float*>(trans),
+      static_cast<const float*>(g_color), static_cast<const float*>(g_trans),
+      static_cast<const float*>(carry_in), n_tiles_x, tile_size, pair_block,
+      round_pairs, min_alpha, max_alpha, static_cast<float*>(pair_grads),
+      static_cast<float*>(carry_out), gl, static_cast<float*>(partials), num_pairs);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Launches one block per tile, of warp_layout(tile_size).warps warps, on
-// `stream` (a tile edge outside 1..kMaxTile or a pair block below 1:
+// `stream` (a tile edge outside 1..kMaxGroup or a pair block below 1:
 // cudaErrorInvalidValue); allocates nothing and does not synchronise.
 // `pair_grads` must be zero-filled. With carry_in set, color and trans are
 // not read (they may be null); carry_out may be null. Returns
@@ -335,26 +393,23 @@ extern "C" int gsplat_raster_bwd(
     const void* g_trans, const void* carry_in, int num_tiles, int n_tiles_x,
     int tile_size, int pair_block, float min_alpha, float max_alpha,
     void* pair_grads, void* carry_out, void* stream) {
-  if (num_tiles == 0) return 0;
-  const gsplat::WarpLayout layout = gsplat::warp_layout(tile_size);
-  if (layout.fx == 0 || pair_block < 1) return (int)cudaErrorInvalidValue;
-  const BwdKernel kernel = pick(layout, pair_block);
-  const int round_pairs = sum_round(layout.warps, pair_block);
-  const size_t smem = gsplat::staging_bytes(pair_block) +
-                      (size_t)layout.warps * round_pairs * kGrad * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  kernel<<<num_tiles, layout.warps * 32, smem, (cudaStream_t)stream>>>(
-      static_cast<const float*>(feat), static_cast<const int*>(pair_gaussian),
-      static_cast<const int*>(tile_start), static_cast<const int*>(tile_count),
-      static_cast<const int*>(tile_ids), static_cast<const int*>(blocks_done),
-      static_cast<const float*>(color), static_cast<const float*>(trans),
-      static_cast<const float*>(g_color), static_cast<const float*>(g_trans),
-      static_cast<const float*>(carry_in), n_tiles_x, tile_size, pair_block,
-      round_pairs, min_alpha, max_alpha, static_cast<float*>(pair_grads),
-      static_cast<float*>(carry_out));
-  return (int)cudaGetLastError();
+  return launch(feat, pair_gaussian, tile_start, tile_count, tile_ids, blocks_done, color, trans, g_color,
+                g_trans, carry_in, num_tiles, n_tiles_x, tile_size, pair_block, min_alpha, max_alpha, pair_grads,
+                carry_out, stream, false, nullptr, 0);
+}
+
+// The same for a tile edge above kMaxGroup: one block per pixel group of
+// each tile (num_tiles * G blocks). Group 0's sums go to pair_grads, group
+// g's to partials[g - 1] ([G - 1, num_pairs, 9], zero-filled); the caller
+// adds the partials to pair_grads in group order.
+extern "C" int gsplat_raster_bwd_groups(
+    const void* feat, const void* pair_gaussian, const void* tile_start,
+    const void* tile_count, const void* tile_ids, const void* blocks_done,
+    const void* color, const void* trans, const void* g_color,
+    const void* g_trans, const void* carry_in, int num_tiles, int n_tiles_x,
+    int tile_size, int pair_block, float min_alpha, float max_alpha,
+    void* pair_grads, void* carry_out, void* stream, void* partials, int num_pairs) {
+  return launch(feat, pair_gaussian, tile_start, tile_count, tile_ids, blocks_done, color, trans, g_color,
+                g_trans, carry_in, num_tiles, n_tiles_x, tile_size, pair_block, min_alpha, max_alpha, pair_grads,
+                carry_out, stream, true, partials, num_pairs);
 }

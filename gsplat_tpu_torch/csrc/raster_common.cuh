@@ -23,16 +23,22 @@
 // The gate itself is unchanged, so results stay bitwise those of a walk
 // over every pair.
 //
-// Tilings. Any tile edge from 1 to kMaxTile (warp_layout): the rect grid is
-// rounded up past the tile's edge, and a thread owns one, two or four
-// pixels, so that a tile of up to 4096 pixels is one block of at most 1024
-// threads. The pair block sets only where the early-stop vote is taken;
-// staging goes by sub-batches of at most kSubRows rows.
+// Tilings. Any tile edge from 1 to kMaxGroup is one thread block
+// (warp_layout): the rect grid is rounded up past the tile's edge, and a
+// thread owns one, two or four pixels, so that a tile of up to 4096 pixels
+// is one block of at most 1024 threads. A larger tile is cut into pixel
+// groups of edge at most kMaxGroup (group_layout), each one block of the
+// group edge's layout with its rect grid from the group's first pixel
+// (BlockPixels); the kernels combine the groups' votes and sums. The pair
+// block sets only where the early-stop vote is taken; staging goes by
+// sub-batches of at most kSubRows rows.
 
 #pragma once
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace gsplat {
 
@@ -45,7 +51,7 @@ enum Col { MX = 0, MY, CX, CY, CXY, OP, R, G, B, X0, Y0, X1, Y1 };
 // rects cull most where splats are small.
 constexpr int kWarpW = 8;
 constexpr int kWarpH = 4;
-constexpr int kMaxTile = 64;   // the largest tile edge (kernels/cull.py MAX_TILE)
+constexpr int kMaxGroup = 64;  // the largest edge of one block's pixels (kernels/cull.py MAX_GROUP)
 constexpr int kMaxWarps = 32;  // warps of a block: 1024 threads
 constexpr unsigned kFull = 0xffffffffu;
 constexpr unsigned kNoWarps = 1u;  // a span with lo_x 1 > hi_x 0: no rect
@@ -71,14 +77,15 @@ __host__ __device__ inline size_t staging_bytes(int pair_block) {
 // fx x fy rects, the first of 1x1, 1x2 and 2x2 that keeps the block within
 // kMaxWarps warps, and each thread one pixel in each of its warp's rects:
 // one pixel up to 32 rects (1024 pixels), two up to 2048, four up to 4096.
-// So a tile is always one thread block, with one early-stop decision per
-// pair block as in the TPU kernel. fx = 0: the tile is not supported.
+// So a tile up to kMaxGroup is one thread block, with one early-stop
+// decision per pair block as in the TPU kernel. Takes the edge of a block's
+// pixels, 1 to kMaxGroup (fx = 0 otherwise).
 struct WarpLayout {
   int fx, fy, warps;
 };
 
 inline WarpLayout warp_layout(int tile_size) {
-  if (tile_size < 1 || tile_size > kMaxTile) return WarpLayout{0, 0, 0};
+  if (tile_size < 1 || tile_size > kMaxGroup) return WarpLayout{0, 0, 0};
   const int rx = (tile_size + kWarpW - 1) / kWarpW, ry = (tile_size + kWarpH - 1) / kWarpH;
   const int blocks[3][2] = {{1, 1}, {1, 2}, {2, 2}};
   for (const auto& f : blocks) {
@@ -128,6 +135,82 @@ struct TilePixels {
     return (int)(py(i) - g.oy) * ts + (int)(px(i) - g.ox);
   }
 };
+
+// A tile of edge above kMaxGroup is cut into n x n pixel groups of edge
+// ceil(tile_size / n), n = ceil(tile_size / kMaxGroup), the last row and
+// column cut by the tile's edge (kernels/cull.py group_layout mirrors it);
+// a tile up to kMaxGroup is one group. Each group is one thread block of
+// warp_layout(edge), edge in (32, 64] for n > 1.
+struct GroupLayout {
+  int n, edge;
+};
+
+inline GroupLayout group_layout(int tile_size) {
+  const int n = (tile_size + kMaxGroup - 1) / kMaxGroup;
+  return GroupLayout{n, (tile_size + n - 1) / n};
+}
+
+// The pixels one thread block composites. Without groups (kGroups false:
+// a tile up to kMaxGroup) block b is tile slot b, and grid and ownership
+// are the tile's (TileGrid, TilePixels). With groups, block b is group b %
+// G of tile slot b / G (G = n * n, row-major), grid is the group's rect
+// grid from the group's first pixel, and a pixel is the block's if it lies
+// before (ex, ey), where the group or the tile ends, whichever is first;
+// pix() counts a pixel's row-major index in the tile from the tile's first
+// pixel (tx, ty). So spans stay within 8 bits whatever the tile, and
+// pixels past the group's edge are owned by no lane of the block, as those
+// past a tile's edge.
+template <bool kGroups>
+struct BlockPixels {
+  int t, g;  // tile slot, group
+  TileGrid grid;
+  float ex, ey, tx, ty;
+
+  __device__ __forceinline__ BlockPixels(const int* tile_ids, int n_tiles_x, int tile_size, GroupLayout gl) {
+    if constexpr (kGroups) {
+      const int groups = gl.n * gl.n;
+      t = blockIdx.x / groups;
+      g = blockIdx.x - t * groups;
+      const int tile = tile_ids[t];
+      tx = (float)((tile % n_tiles_x) * tile_size);
+      ty = (float)((tile / n_tiles_x) * tile_size);
+      grid.ox = tx + (float)((g % gl.n) * gl.edge);
+      grid.oy = ty + (float)((g / gl.n) * gl.edge);
+      grid.rects_x = (gl.edge + kWarpW - 1) / kWarpW;
+      grid.rects_y = (gl.edge + kWarpH - 1) / kWarpH;
+      ex = fminf(grid.ox + (float)gl.edge, tx + (float)tile_size);
+      ey = fminf(grid.oy + (float)gl.edge, ty + (float)tile_size);
+    } else {
+      t = blockIdx.x;
+      g = 0;
+      grid = tile_grid(tile_ids[t], n_tiles_x, tile_size);
+    }
+  }
+
+  template <class P>
+  __device__ __forceinline__ bool owns(const P& me, int i, int tile_size) const {
+    if constexpr (kGroups) {
+      return me.px(i) < ex && me.py(i) < ey;
+    } else {
+      return me.owns(i, grid, tile_size);
+    }
+  }
+
+  template <class P>
+  __device__ __forceinline__ size_t pix(const P& me, int i, int tile_size) const {
+    if constexpr (kGroups) {
+      return (size_t)(me.py(i) - ty) * tile_size + (size_t)(me.px(i) - tx);
+    } else {
+      return me.pix(i, grid, tile_size);
+    }
+  }
+};
+
+// The type of a pixel count of one tile: int up to kMaxGroup (as before
+// groups existed), size_t for a tile cut into groups, whose pixels may
+// exceed int.
+template <bool kGroups>
+using PixIndex = typename std::conditional<kGroups, size_t, int>::type;
 
 // Warp blocks per row of the grid.
 template <int FX>

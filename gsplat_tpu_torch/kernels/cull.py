@@ -1,23 +1,27 @@
-"""The compositors' culling, in plain PyTorch: each pair's alpha-bound rect,
-the warp rect, the tilings the kernels take, and the counts of the work the
-culled kernels do.
+"""The compositors' culling and tiling, in plain PyTorch: each pair's
+alpha-bound rect, the warp rect, the pixel groups of large tiles, the
+tilings the kernels take, and the counts of the work the culled kernels do.
 
 Both CUDA compositors (``csrc/raster_fwd.cu``, ``csrc/raster_bwd.cu``) cut a
 tile's pixels into compact rects of ``WARP_RECT`` pixels, each walked by one
 warp (a warp owns one, two or four of them: :func:`warp_layout`), and walk
 in each rect only the pairs whose alpha-bound rect meets it (``csrc/raster_common.cuh``
 ``alpha_rect`` and ``warp_span``). :func:`pair_alpha_rect` is the plain twin
-of ``alpha_rect``. Nothing on the render or training path calls this
-module's culling functions: the kernels take their rects themselves (the
-wrappers call only :func:`check_tiling`). The CPU tests
-check with them that the rect is conservative and the culling exact, and
-``chip_smoke.py`` counts with them the pair-pixels and warp evaluations a
-culled walk makes (:func:`cull_counts`).
+of ``alpha_rect``. A tile of edge above ``MAX_GROUP`` is cut into pixel
+groups (:func:`group_layout`), each one thread block; the forward's
+early-stop vote and the backward's pixel sums are then taken per group and
+combined (:func:`resume_ranges`, the partial rows of ``kernels/raster_bwd.py``).
+Nothing on the render or training path calls this module's culling
+functions: the kernels take their rects themselves (the wrappers call only
+:func:`check_tiling` and :func:`group_layout`). The CPU tests check with
+them that the rect is conservative, the culling exact and the group walk
+bitwise the tile's, and ``chip_smoke.py`` counts with them the pair-pixels
+and warp evaluations a culled walk makes (:func:`cull_counts`).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Tuple
 
 import torch
 
@@ -25,38 +29,88 @@ from gsplat_tpu_torch.ops import binning as B
 from gsplat_tpu_torch.ops.compositing import MIN_ALPHA_F32
 
 WARP_RECT = (8, 4)  # pixels a warp walks as one, x by y (csrc/raster_common.cuh kWarpW, kWarpH)
-MAX_TILE = 64  # the largest tile edge the kernels take (kMaxTile)
+MAX_GROUP = 64  # the largest edge of the pixels one thread block composites (kMaxGroup)
 MAX_WARPS = 32  # warps of a block: 1024 threads
 WARP_BLOCKS = ((1, 1), (1, 2), (2, 2))  # rects a warp may own, x by y, in the order tried
 SUB_ROWS = 256  # rows a staged sub-batch holds at most (kSubRows)
 MAX_SMEM = 232448  # shared memory a block may opt in to on Hopper
 
 
+def group_layout(tile_size: int) -> Tuple[int, int]:
+    """How the kernels cut a tile into pixel groups (``group_layout`` in
+    ``csrc/raster_common.cuh``): ``(n, edge)``, ``n x n`` groups of edge
+    ``edge = ceil(tile_size / n)``, ``n = ceil(tile_size / MAX_GROUP)``; the
+    last row and column of groups are cut by the tile's edge. A tile up to
+    ``MAX_GROUP`` is one group, its own edge. Raises ValueError for a tile
+    edge below 1."""
+    if tile_size < 1:
+        raise ValueError(f"tile_size {tile_size} not supported: a tile edge must be positive")
+    n = -(-tile_size // MAX_GROUP)
+    return n, -(-tile_size // n)
+
+
+def group_rects(tile_size: int) -> List[Tuple[int, int, int, int]]:
+    """Each pixel group's half-open pixel rect ``(x0, y0, x1, y1)`` in the
+    tile (from the tile's first pixel), in group order (row-major), cut by
+    the tile's edge."""
+    n, e = group_layout(tile_size)
+    return [(gx * e, gy * e, min((gx + 1) * e, tile_size), min((gy + 1) * e, tile_size))
+            for gy in range(n) for gx in range(n)]
+
+
+def group_pixels(tile_size: int) -> List[torch.Tensor]:
+    """Each pixel group's pixels as indices into the tile's row-major
+    ``tile_size**2`` pixels (int64), in group order."""
+    out = []
+    for x0, y0, x1, y1 in group_rects(tile_size):
+        ys, xs = torch.meshgrid(torch.arange(y0, y1), torch.arange(x0, x1), indexing="ij")
+        out.append((ys * tile_size + xs).reshape(-1))
+    return out
+
+
+def resume_ranges(group_done: torch.Tensor, tile_start: torch.Tensor, tile_count: torch.Tensor,
+                  pair_block: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The forward's resume after each group's own early-stop vote
+    (``csrc/raster_fwd.cu``): from the pair blocks each group composited
+    ``group_done [T, G]``, the tile's ``blocks_done [T]`` (the most over its
+    groups: T never grows, so the tile's vote first passes after its last
+    group's), and each group's pairs left to composite with the vote off,
+    blocks ``[done_g, done_tile)``: ``start [T, G]`` (``tile_start +
+    done_g * pair_block``) and ``count [T, G]`` (up to the tile's count; 0
+    for a group with nothing left, which passes its state through)."""
+    done = group_done.long()
+    tile_done = done.amax(dim=1)
+    first = done * pair_block
+    end = torch.minimum(tile_count.long(), tile_done * pair_block)
+    start = tile_start.long()[:, None] + first
+    count = (end[:, None] - first).clamp(min=0)
+    return tile_done.to(torch.int32), start.to(torch.int32), count.to(torch.int32)
+
+
 def rect_grid(tile_size: int) -> Tuple[int, int]:
-    """The kernels' grid of warp rects over a tile, ``(rects_x, rects_y)``:
-    rounded up past the tile's edge where it is not a multiple of
-    ``WARP_RECT`` (lanes whose pixel lies past the edge own none)."""
+    """The kernels' grid of warp rects over a block's pixels of edge
+    ``tile_size`` (a tile up to ``MAX_GROUP``, or a pixel group),
+    ``(rects_x, rects_y)``: rounded up past the edge where it is not a
+    multiple of ``WARP_RECT`` (lanes whose pixel lies past the edge own
+    none)."""
     ww, wh = WARP_RECT
     return -(-tile_size // ww), -(-tile_size // wh)
 
 
 def warp_layout(tile_size: int) -> Tuple[int, int, int]:
-    """How the kernels map a tile's rects onto warps (``warp_layout`` in
-    ``csrc/raster_common.cuh``): ``(fx, fy, warps)``, each warp owning a
-    block of ``fx x fy`` rects (each thread a pixel in each), the first of
-    ``WARP_BLOCKS`` that needs at most ``MAX_WARPS`` warps. Raises
-    ValueError for a tile edge outside 1..``MAX_TILE``."""
-    if not 1 <= tile_size <= MAX_TILE:
-        raise ValueError(
-            f"tile_size {tile_size} not supported: the compositors take tile edges from 1 to {MAX_TILE} (a tile "
-            f"is one thread block of at most {MAX_WARPS * 32} threads, each owning at most 4 pixels)"
-        )
-    rx, ry = rect_grid(tile_size)
+    """How the kernels map a block's rects onto warps (``warp_layout`` in
+    ``csrc/raster_common.cuh``), for the block of a tile of this edge (of
+    its pixel groups' edge above ``MAX_GROUP``): ``(fx, fy, warps)``, each
+    warp owning a block of ``fx x fy`` rects (each thread a pixel in each),
+    the first of ``WARP_BLOCKS`` that needs at most ``MAX_WARPS`` warps.
+    Raises ValueError for a tile edge below 1."""
+    edge = group_layout(tile_size)[1]
+    rx, ry = rect_grid(edge)
     for fx, fy in WARP_BLOCKS:
         warps = -(-rx // fx) * -(-ry // fy)
         if warps <= MAX_WARPS:
             return fx, fy, warps
-    raise AssertionError("unreachable: a 2x2 block covers every tile up to MAX_TILE")
+    raise AssertionError("unreachable: a 2x2 block covers every group up to MAX_GROUP")
 
 
 def staging_bytes(pair_block: int) -> int:
@@ -68,9 +122,9 @@ def staging_bytes(pair_block: int) -> int:
 
 
 def check_tiling(who: str, tile_size: int, pair_block: int, smem_bytes: int) -> None:
-    """Raise ValueError unless the kernels can take this tiling: a tile edge
-    from 1 to ``MAX_TILE``, a positive pair block, and the launch's shared
-    memory at most ``MAX_SMEM``."""
+    """Raise ValueError unless the kernels can take this tiling: a positive
+    tile edge, a positive pair block, and the launch's shared memory at
+    most ``MAX_SMEM``."""
     if pair_block <= 0:
         raise ValueError(f"{who}: pair_block {pair_block} not supported: it must be positive")
     try:
@@ -130,19 +184,24 @@ def cull_counts(rect: torch.Tensor, ox: torch.Tensor, oy: torch.Tensor,
                 tile_size: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """For pairs with rects ``rect [P, 4]`` walked in tiles whose first
     pixels are ``(ox, oy)`` (each ``[P]``): the tile pixels inside each rect,
-    and the warp rects of the tile's grid (``rect_grid``, rounded up past
-    the tile's edge) that each rect meets, which are the rects in which a
-    warp walks the pair (``warp_span`` in ``csrc/raster_common.cuh``).
-    Returns two int64 ``[P]``."""
+    and the warp rects that each rect meets, which are the rects in which a
+    warp walks the pair (``warp_span`` in ``csrc/raster_common.cuh``): over
+    each pixel group of the tile (:func:`group_layout`; the tile itself up
+    to ``MAX_GROUP``), the grid of rects from the group's first pixel,
+    rounded up past the group's edge. Returns two int64 ``[P]``."""
     ww, wh = WARP_RECT
-    rx, ry = rect_grid(tile_size)
+    rx, ry = rect_grid(group_layout(tile_size)[1])
     ox, oy = ox.to(rect.dtype), oy.to(rect.dtype)
-    x0, x1 = torch.maximum(rect[:, 0], ox), torch.minimum(rect[:, 2], ox + tile_size)
-    y0, y1 = torch.maximum(rect[:, 1], oy), torch.minimum(rect[:, 3], oy + tile_size)
-    pixels = ((x1 - x0).clamp(min=0) * (y1 - y0).clamp(min=0)).long()
-    gx0, gx1 = torch.maximum(rect[:, 0], ox), torch.minimum(rect[:, 2], ox + rx * ww)
-    gy0, gy1 = torch.maximum(rect[:, 1], oy), torch.minimum(rect[:, 3], oy + ry * wh)
-    nwx = torch.floor((gx1 - 1 - ox) / ww) - torch.floor((gx0 - ox) / ww) + 1
-    nwy = torch.floor((gy1 - 1 - oy) / wh) - torch.floor((gy0 - oy) / wh) + 1
-    warps = torch.where((gx1 > gx0) & (gy1 > gy0), nwx * nwy, 0.0).long()
+    pixels = torch.zeros(rect.shape[0], dtype=torch.int64, device=rect.device)
+    warps = torch.zeros_like(pixels)
+    for gx0, gy0, gx1, gy1 in group_rects(tile_size):
+        x0, x1 = torch.maximum(rect[:, 0], ox + gx0), torch.minimum(rect[:, 2], ox + gx1)
+        y0, y1 = torch.maximum(rect[:, 1], oy + gy0), torch.minimum(rect[:, 3], oy + gy1)
+        pixels += ((x1 - x0).clamp(min=0) * (y1 - y0).clamp(min=0)).long()
+        lx, ly = ox + gx0, oy + gy0  # the group's grid of rects starts here
+        x0, x1 = torch.maximum(rect[:, 0], lx), torch.minimum(rect[:, 2], lx + rx * ww)
+        y0, y1 = torch.maximum(rect[:, 1], ly), torch.minimum(rect[:, 3], ly + ry * wh)
+        nwx = torch.floor((x1 - 1 - lx) / ww) - torch.floor((x0 - lx) / ww) + 1
+        nwy = torch.floor((y1 - 1 - ly) / wh) - torch.floor((y0 - ly) / wh) + 1
+        warps += torch.where((x1 > x0) & (y1 > y0), nwx * nwy, 0.0).long()
     return pixels, warps

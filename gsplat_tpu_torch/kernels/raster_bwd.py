@@ -24,6 +24,12 @@ state after the slice, so slices walked front to back take the steps of one
 walk. :func:`walk_state` builds the first state exactly as the kernel
 starts its walk. It keeps its own launch count.
 
+A tile of edge above 64 is cut into pixel groups, one thread block each
+(``kernels/cull.py`` ``group_layout``), all walking to the tile's
+``blocks_done``. Group 0 writes its per-pair sums into the rows, every
+other group into partial rows ``[G - 1, P, 9]``, which are then added to
+them in group order, so the rows are bitwise repeatable.
+
 Without ``gaussian_counts`` (a depth slice's pairs, or a compacted subset of
 a frame's) the rows reduce by :func:`reduce_sorted`, which finds each
 gaussian's segment in the id-sorted rows itself; :func:`reduce_compacted`
@@ -54,13 +60,15 @@ _ARGTYPES = (
     _F, _F,  # min_alpha, max_alpha
     _P, _P, _P,  # pair_grads, carry_out, stream
 )
+_GROUP_ARGTYPES = _ARGTYPES + (_P, _I)  # partials, num_pairs
 _SCAN_BLOCK = 1024  # row length of the blocked cumsum
 
 
 def _sum_round(tile_size: int, pair_block: int) -> int:
     """Pairs per round of the kernel's pixel sums (csrc/raster_bwd.cu
     ``sum_round``): the whole staged sub-batch where its warp slots fit in
-    shared memory beside the staging, else 32."""
+    shared memory beside the staging, else 32. The warps are a block's:
+    those of a pixel group above 64."""
     sub = min(pair_block, cull.SUB_ROWS)
     whole = cull.staging_bytes(pair_block) + cull.warp_layout(tile_size)[2] * sub * NUM_GRAD * 4
     return sub if whole <= cull.MAX_SMEM else 32
@@ -274,21 +282,31 @@ def _launch(who, args, blocks_done, outs, carry_in, n_tiles_x, cfg):
         t.shape != (num_t,) for t in (tile_start, tile_count) + ((blocks_done,) if blocks_done is not None else ())
     ):
         raise ValueError(f"{who}: pair_gaussian must be 1-D and tile_start/tile_count/blocks_done [T]")
-    fn = build.load_function("raster_bwd", "gsplat_raster_bwd", _ARGTYPES)
-    pair_grads = torch.zeros((pair_gaussian.shape[0], NUM_GRAD), dtype=f32, device=feat.device)
+    num_p = pair_gaussian.shape[0]
+    groups = cull.group_layout(cfg.tile_size)[0] ** 2
+    pair_grads = torch.zeros((num_p, NUM_GRAD), dtype=f32, device=feat.device)
     carry_out = None if carry_in is None else torch.empty_like(carry_in)
     stream = torch.cuda.current_stream(feat.device).cuda_stream
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    err = fn(
+    common = (
         *(t.data_ptr() for t in args), ptr(blocks_done), *(ptr(t) for t in outs), ptr(carry_in),
         num_t, n_tiles_x, cfg.tile_size, cfg.pair_block, MIN_ALPHA_F32, MAX_GAUSSIAN_DENSITY_F32,
         pair_grads.data_ptr(), ptr(carry_out), stream,
     )
+    if groups == 1:
+        err = build.load_function("raster_bwd", "gsplat_raster_bwd", _ARGTYPES)(*common)
+    else:
+        partials = torch.zeros((groups - 1, num_p, NUM_GRAD), dtype=f32, device=feat.device)
+        err = build.load_function("raster_bwd", "gsplat_raster_bwd_groups", _GROUP_ARGTYPES)(
+            *common, partials.data_ptr(), num_p)
     if err != 0:
         raise RuntimeError(f"raster_bwd kernel launch failed with cudaError_t {err}")
+    if groups > 1:
+        for part in partials:  # group order: ((group 0 + group 1) + group 2) + ...
+            pair_grads += part
     return pair_grads, carry_out
 
 

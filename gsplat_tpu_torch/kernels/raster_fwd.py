@@ -17,6 +17,14 @@ the TPU kernel's block-granular early stop on coverable pixels.
 resumes from a carried colour and T instead of (0, 1), ``blocks_done``
 counts this call's blocks, and a tile with no pairs passes its carry
 through. It keeps its own launch count.
+
+A tile of edge above 64 is cut into pixel groups, one thread block each
+(``kernels/cull.py`` ``group_layout``). With early stop on, each group
+first votes on its own pixels; a second launch, the resume, then takes each
+group that stopped before its tile's last group on to that block with the
+vote off, so every pixel takes the steps of the unsplit tile and the frame
+stays bitwise the plain version's. Each wrapper counts that launch apart
+(``resume_launches``): ``launches`` keeps counting one per call.
 """
 
 from __future__ import annotations
@@ -40,6 +48,7 @@ _ARGTYPES = (
     _F, _I, _I, _F, _F,  # early_stop, width, height, min_alpha, max_alpha
     _P, _P, _P, _P,  # color, trans, blocks_done, stream
 )
+_GROUP_ARGTYPES = _ARGTYPES + (_P, _I)  # group_done, resume
 
 
 def forward_tiles_plain(
@@ -54,24 +63,51 @@ def forward_tiles_plain(
     height: int = 0,
     carry: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The kernel's function in plain PyTorch, vectorized over tiles.
+    """The kernel's function in plain PyTorch, vectorized over tiles: the
+    tile's pixels through :func:`composite_pixels`, pixels of the last row
+    and column of the frame (and outside it) left out of the early-stop
+    vote. ``carry`` (colour ``[T, npix, 3]``, T ``[T, npix]``) is the state
+    to resume from, (0, 1) when None."""
+    px, py = tile_pixel_coords(tile_ids, n_tiles_x, cfg.tile_size, feat.dtype)  # [T, npix]
+    if width > 0 and height > 0:
+        votes = (px < width - 1) & (py < height - 1)
+    else:
+        votes = torch.ones_like(px, dtype=torch.bool)
+    return composite_pixels(feat, pair_gaussian, tile_start, tile_count, px, py, votes, cfg, carry)
 
-    Walks pair blocks up to the largest tile's count (one host sync for that
+
+def composite_pixels(
+    feat: torch.Tensor,
+    pair_gaussian: torch.Tensor,
+    tile_start: torch.Tensor,
+    tile_count: torch.Tensor,
+    px: torch.Tensor,
+    py: torch.Tensor,
+    votes: torch.Tensor,
+    cfg: RasterConfig,
+    carry: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Front-to-back compositing of each row's pairs (``tile_start``,
+    ``tile_count`` ``[T]``) at the pixels ``px, py [T, K]``: a tile's pixels,
+    or a pixel group of them as the kernels take a large tile. After each
+    pair block a row stops once none of its ``votes [T, K]`` pixels has
+    ``T >= early_stop_transmittance`` (early stop on). Returns colour
+    ``[T, K, 3]``, T ``[T, K]`` and the pair blocks composited ``[T]``.
+
+    Walks pair blocks up to the largest count (one host sync for that
     count), and in the last of them stops at that count. Within a block,
     alphas are evaluated ``chunk_size`` pairs at a time and composited pair
     by pair in the kernel's order (``C += rgb * (alpha * T)``, then
-    ``T *= 1 - alpha``). A tile that is done, or a pair slot past its
-    tile's count, composites alpha 0, which leaves color and T bitwise
-    unchanged. ``carry`` (colour ``[T, npix, 3]``, T ``[T, npix]``) is the
-    state to resume from, (0, 1) when None.
+    ``T *= 1 - alpha``). A row that is done, or a pair slot past its
+    count, composites alpha 0, which leaves color and T bitwise
+    unchanged.
     """
     dev, dtype = feat.device, feat.dtype
-    ts, cs, blk = cfg.tile_size, cfg.chunk_size, cfg.pair_block
-    num_t = tile_ids.shape[0]
-    px, py = tile_pixel_coords(tile_ids, n_tiles_x, ts, dtype)  # [T, npix]
+    cs, blk = cfg.chunk_size, cfg.pair_block
+    num_t, num_px = px.shape
     if carry is None:
-        color = torch.zeros((num_t, ts * ts, 3), dtype=dtype, device=dev)
-        trans = torch.ones((num_t, ts * ts), dtype=dtype, device=dev)
+        color = torch.zeros((num_t, num_px, 3), dtype=dtype, device=dev)
+        trans = torch.ones((num_t, num_px), dtype=dtype, device=dev)
     else:
         color, trans = carry
     start = tile_start.long()
@@ -79,10 +115,6 @@ def forward_tiles_plain(
     nblocks = -(-count // blk)
     blocks_done = torch.zeros(num_t, dtype=torch.int64, device=dev)
     running = torch.ones(num_t, dtype=torch.bool, device=dev)
-    if width > 0 and height > 0:
-        coverable = (px < width - 1) & (py < height - 1)
-    else:
-        coverable = torch.ones_like(px, dtype=torch.bool)
     pairs = pair_gaussian.long()
     sentinel = feat.shape[0] - 1
     lane = torch.arange(cs, device=dev)
@@ -117,7 +149,7 @@ def forward_tiles_plain(
                 trans = trans * (1.0 - a[:, j])
         blocks_done += live
         if cfg.early_stop_transmittance > 0.0:
-            still = ((trans >= cfg.early_stop_transmittance) & coverable).any(dim=1)
+            still = ((trans >= cfg.early_stop_transmittance) & votes).any(dim=1)
             running = running & (~live | still)
     return color, trans, blocks_done.to(torch.int32)
 
@@ -140,9 +172,7 @@ def forward_tiles(
     args = (feat, pair_gaussian, tile_start, tile_count, tile_ids)
     if feat.device.type == "cpu":
         return forward_tiles_plain(*args, n_tiles_x, cfg, width, height)
-    out = _launch("forward_tiles", args, None, n_tiles_x, cfg, width, height)
-    forward_tiles.launches += 1
-    return out
+    return _launch(forward_tiles, args, None, n_tiles_x, cfg, width, height)
 
 
 def forward_tiles_carry(
@@ -166,13 +196,14 @@ def forward_tiles_carry(
     args = (feat, pair_gaussian, tile_start, tile_count, tile_ids)
     if feat.device.type == "cpu":
         return forward_tiles_plain(*args, n_tiles_x, cfg, width, height, carry=(carry_color, carry_trans))
-    out = _launch("forward_tiles_carry", args, (carry_color, carry_trans), n_tiles_x, cfg, width, height)
-    forward_tiles_carry.launches += 1
-    return out
+    return _launch(forward_tiles_carry, args, (carry_color, carry_trans), n_tiles_x, cfg, width, height)
 
 
-def _launch(who, args, carry, n_tiles_x, cfg, width, height):
-    """Check the inputs and launch the kernel on the current stream."""
+def _launch(wrapper, args, carry, n_tiles_x, cfg, width, height):
+    """Check the inputs and launch the kernel on the current stream, with
+    the resume launch where a tile is cut into pixel groups and early stop
+    is on; count the launches on ``wrapper``."""
+    who = wrapper.__name__
     feat, pair_gaussian, tile_start, tile_count, tile_ids = args
     if feat.device.type != "cuda":
         raise ValueError(f"{who}: unsupported device {feat.device}")
@@ -201,21 +232,44 @@ def _launch(who, args, carry, n_tiles_x, cfg, width, height):
             f"got {tuple(carry[0].shape)} and {tuple(carry[1].shape)}"
         )
     cull.check_tiling(who, cfg.tile_size, cfg.pair_block, cull.staging_bytes(cfg.pair_block))
-    fn = build.load_function("raster_fwd", "gsplat_raster_fwd", _ARGTYPES)
-    color = torch.empty((num_t, npix, 3), dtype=torch.float32, device=feat.device)
-    trans = torch.empty((num_t, npix), dtype=torch.float32, device=feat.device)
-    blocks_done = torch.empty((num_t,), dtype=torch.int32, device=feat.device)
+    groups = cull.group_layout(cfg.tile_size)[0] ** 2
     stream = torch.cuda.current_stream(feat.device).cuda_stream
-    carry_ptrs = (None, None) if carry is None else (carry[0].data_ptr(), carry[1].data_ptr())
-    err = fn(
-        *(t.data_ptr() for t in args), *carry_ptrs, num_t, n_tiles_x, cfg.tile_size, cfg.pair_block,
-        cfg.early_stop_transmittance, width, height, MIN_ALPHA_F32, MAX_GAUSSIAN_DENSITY_F32,
-        color.data_ptr(), trans.data_ptr(), blocks_done.data_ptr(), stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"raster_fwd kernel launch failed with cudaError_t {err}")
+
+    def run(carry, early_stop, group_done=None, resume=0):
+        color = torch.empty((num_t, npix, 3), dtype=torch.float32, device=feat.device)
+        trans = torch.empty((num_t, npix), dtype=torch.float32, device=feat.device)
+        carry_ptrs = (None, None) if carry is None else (carry[0].data_ptr(), carry[1].data_ptr())
+        common = (*(t.data_ptr() for t in args), *carry_ptrs, num_t, n_tiles_x, cfg.tile_size, cfg.pair_block,
+                  early_stop, width, height, MIN_ALPHA_F32, MAX_GAUSSIAN_DENSITY_F32,
+                  color.data_ptr(), trans.data_ptr(), blocks_done.data_ptr(), stream)
+        if groups == 1:
+            err = build.load_function("raster_fwd", "gsplat_raster_fwd", _ARGTYPES)(*common)
+        else:
+            err = build.load_function("raster_fwd", "gsplat_raster_fwd_groups", _GROUP_ARGTYPES)(
+                *common, None if group_done is None else group_done.data_ptr(), resume)
+        if err != 0:
+            raise RuntimeError(f"raster_fwd kernel launch failed with cudaError_t {err}")
+        return color, trans
+
+    blocks_done = torch.empty((num_t,), dtype=torch.int32, device=feat.device)
+    stop = cfg.early_stop_transmittance
+    if groups == 1 or stop <= 0.0:
+        # One launch: without groups the block votes for the whole tile;
+        # without early stop every group walks every block.
+        color, trans = run(carry, stop)
+        wrapper.launches += 1
+        return color, trans, blocks_done
+    # Each group votes on its own pixels and records its blocks; the resume
+    # takes every group on to its tile's last group's block, the vote off.
+    group_done = torch.empty((num_t * groups,), dtype=torch.int32, device=feat.device)
+    first = run(carry, stop, group_done)
+    wrapper.launches += 1
+    color, trans = run(first, 0.0, group_done, resume=1)
+    wrapper.resume_launches += 1
     return color, trans, blocks_done
 
 
 forward_tiles.launches = 0  # kernel launches since the count was last reset
+forward_tiles.resume_launches = 0  # resume launches of grouped tiles with early stop
 forward_tiles_carry.launches = 0
+forward_tiles_carry.resume_launches = 0

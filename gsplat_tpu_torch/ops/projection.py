@@ -15,11 +15,20 @@ Parity targets (reference file:line):
 The integer bboxes come from float ``floor``/``ceil`` and clamps, so every
 float step keeps the JAX package's operation order: one ulp of difference
 can flip an integer.
+
+The render path runs the fused :func:`preprocess_gaussians_from_params`.
+The step functions beside it (:func:`project_to_camera_space`,
+:func:`project_to_screen`, :func:`ewa_project_covariance`,
+:func:`conic_from_cov2d`, :func:`covering_bbox`,
+:func:`preprocess_active_mask`) and the array-of-structs
+:func:`preprocess_gaussians` built from them are the JAX package's public
+``ops`` functions of the same names, on ``[N, 3, 3]`` / ``[N, 2, 2]``
+tensors on the caller's device; no path of either package calls them.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -41,6 +50,102 @@ def covariance_from_scales_quats(scales: torch.Tensor, quats: torch.Tensor) -> t
     rot = quaternion_to_rotation_matrix(normalize_quaternion(quats))
     m = rot * scales[:, None, :]
     return m @ m.transpose(-1, -2)
+
+
+def project_to_camera_space(means: torch.Tensor, w2c_t: torch.Tensor) -> torch.Tensor:
+    """World -> camera coordinates with the row-vector transposed matrix
+    (rasterize.py:80-86): ``p_cam = p @ R^T + t``."""
+    return means @ w2c_t[:3, :3] + w2c_t[3, :3]
+
+
+def project_to_screen(means: torch.Tensor, full_proj_t: torch.Tensor, cam_z: torch.Tensor, width: int,
+                      height: int) -> torch.Tensor:
+    """World means to pixel coordinates ``[N, 2]`` (rasterize.py:374-391):
+    homogeneous clip coordinates through the row-vector transform, culled
+    points (``cam_z < 0.2``) zeroed before the epsilon-guarded perspective
+    divide, then NDC to pixels, ``((ndc + 1) * [W, H] - 1) / 2``."""
+    clip = means @ full_proj_t[:3, :] + full_proj_t[3, :]
+    clip = torch.where((cam_z < FRUSTUM_NEAR_Z)[:, None], 0.0, clip)
+    inv_w = 1.0 / (clip[:, 3] + PERSPECTIVE_EPS)
+    ndc = clip[:, :3] * inv_w[:, None]
+    wh = torch.tensor([width, height], dtype=ndc.dtype, device=ndc.device)
+    return ((ndc[:, :2] + 1.0) * wh - 1.0) / 2.0
+
+
+def ewa_project_covariance(cov3d: torch.Tensor, cam_points: torch.Tensor, tan_fov_x: float, tan_fov_y: float,
+                           focal_x: float, focal_y: float, w2c_t: torch.Tensor) -> torch.Tensor:
+    """EWA splatting: 3D covariances ``[N, 3, 3]`` to 2D screen space
+    ``[N, 2, 2]`` (rasterize.py:201-252), with the reference's halved focal
+    lengths, the view ray clamped to 1.3 tan(fov) and the +0.3 low-pass on
+    the diagonal. ``T = J W`` from the two nonzero rows of the Jacobian J
+    and the world->camera rotation W; the result is ``T cov3d T^T``."""
+    fx = focal_x / 2.0
+    fy = focal_y / 2.0
+    x, y, z = cam_points[:, 0], cam_points[:, 1], cam_points[:, 2]
+    lim_x = EWA_TAN_CLAMP * tan_fov_x
+    lim_y = EWA_TAN_CLAMP * tan_fov_y
+    tx = torch.clamp(x / z, -lim_x, lim_x) * z
+    ty = torch.clamp(y / z, -lim_y, lim_y) * z
+    inv_z = 1.0 / z
+    inv_z2 = inv_z * inv_z
+    zeros = torch.zeros_like(z)
+    j = torch.stack([
+        torch.stack([fx * inv_z, zeros, -fx * tx * inv_z2], dim=-1),
+        torch.stack([zeros, fy * inv_z, -fy * ty * inv_z2], dim=-1),
+    ], dim=-2)  # [N, 2, 3]
+    t = j @ w2c_t[:3, :3].T  # w2c_t holds R^T
+    cov2d = t @ cov3d @ t.transpose(-1, -2)
+    lowpass = torch.tensor([[COV2D_LOWPASS, 0.0], [0.0, COV2D_LOWPASS]], dtype=cov2d.dtype, device=cov2d.device)
+    return cov2d + lowpass
+
+
+def conic_from_cov2d(cov2d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Inverse 2D covariance packed as ``[sigma_x, sigma_y, sigma_xy]``
+    (rasterize.py:395-411): ``sigma_x = cov[1,1] / det``, ``sigma_y =
+    cov[0,0] / det``, ``sigma_xy = -cov[0,1] / det``; ``det == 0`` gives the
+    zero conic. Returns (conic ``[N, 3]``, det ``[N]``)."""
+    a, b, c = cov2d[:, 0, 0], cov2d[:, 0, 1], cov2d[:, 1, 1]
+    det = a * c - b * b
+    det_inv = torch.where(det == 0.0, 0.0, 1.0 / det)
+    return torch.stack([c * det_inv, a * det_inv, -b * det_inv], dim=-1), det
+
+
+def covering_bbox(screen_means: torch.Tensor, cov2d: torch.Tensor, width: int, height: int) -> torch.Tensor:
+    """Integer pixel bbox ``[x_min, y_min, x_max, y_max]`` (int32, half-open)
+    per gaussian, with the reference's two-step rounding: in 16-pixel block
+    units clamped to (width - 1, height - 1) and floored (rasterize.py:
+    183-198), then rescaled and clamped to pixels (rasterize.py:413-419).
+    Radius ``ceil(3 * max std-dev)`` with the 0.1 floor inside the sqrt."""
+    a, b, c = cov2d[:, 0, 0], cov2d[:, 0, 1], cov2d[:, 1, 1]
+    det = a * c - b * b
+    trace = a + c
+    disc = torch.clamp(trace * trace / 4.0 - det, min=EIGENVALUE_FLOOR)
+    lambda1 = trace / 2.0 + torch.sqrt(disc)
+    lambda2 = trace / 2.0 - torch.sqrt(disc)
+    max_spread = torch.ceil(GAUSSIAN_SPREAD * torch.sqrt(torch.maximum(lambda1, lambda2)))
+    mx, my = screen_means[:, 0], screen_means[:, 1]
+    bs = float(BLOCK_SIZE)
+    blocks = torch.floor(torch.stack([
+        torch.clamp((mx - max_spread) / bs, 0, width - 1),
+        torch.clamp((my - max_spread) / bs, 0, height - 1),
+        torch.clamp((mx + max_spread + bs - 1) / bs, 0, width - 1),
+        torch.clamp((my + max_spread + bs - 1) / bs, 0, height - 1),
+    ], dim=-1)).to(torch.int32)
+    limit = torch.tensor([width, height, width, height], dtype=torch.int32, device=blocks.device) - 1
+    return torch.minimum(torch.clamp(blocks * BLOCK_SIZE, min=0), limit)
+
+
+def preprocess_active_mask(bbox: torch.Tensor, conics: torch.Tensor, strict_parity: bool) -> torch.Tensor:
+    """Which gaussians the raster loop blends: a bbox of nonzero area and,
+    under ``strict_parity``, no zero conic coefficient (the reference's
+    any-zero test, rasterize.py:440-443, which also drops axis-aligned
+    gaussians), else not the all-zero conic of a degenerate one."""
+    nonzero_area = (bbox[:, 2] - bbox[:, 0]) * (bbox[:, 3] - bbox[:, 1]) > 0
+    if strict_parity:
+        conic_ok = (conics != 0.0).all(dim=-1)
+    else:
+        conic_ok = (conics != 0.0).any(dim=-1)
+    return nonzero_area & conic_ok
 
 
 class Preprocessed(NamedTuple):
@@ -233,4 +338,45 @@ def preprocess_gaussians_from_params(
         bbox=bbox,
         cull_bbox=_alpha_cull_bbox(mean_px, mean_py, cov_a, cov_c, opacity, bbox, width, height),
         active=active,
+    )
+
+
+def preprocess_gaussians(
+    means: torch.Tensor,
+    cov3d: torch.Tensor,
+    opacity: torch.Tensor,
+    rgb: torch.Tensor,
+    w2c_t: torch.Tensor,
+    full_proj_t: torch.Tensor,
+    tan_fov_x: float,
+    tan_fov_y: float,
+    focal_x: float,
+    focal_y: float,
+    width: int,
+    height: int,
+    strict_parity: bool = True,
+) -> Preprocessed:
+    """The array-of-structs preprocess for one camera (rasterize.py:370-425)
+    from 3D covariances ``[N, 3, 3]``, through the step functions above; the
+    same quantities as :func:`preprocess_gaussians_from_params` up to the
+    rounding of the batched products."""
+    cam_points = project_to_camera_space(means, w2c_t)
+    depth = cam_points[:, 2]
+    screen_means = project_to_screen(means, full_proj_t, depth, width, height)
+    cov2d = ewa_project_covariance(cov3d, cam_points, tan_fov_x, tan_fov_y, focal_x, focal_y, w2c_t)
+    # Culled gaussians get a zero covariance (rasterize.py:388) -> det == 0
+    # -> zero conic -> skipped by the raster loop.
+    cov2d = torch.where((depth < FRUSTUM_NEAR_Z)[:, None, None], 0.0, cov2d)
+    conics, _ = conic_from_cov2d(cov2d)
+    bbox = covering_bbox(screen_means, cov2d, width, height)
+    return Preprocessed(
+        screen_means=screen_means,
+        conics=conics,
+        rgb=rgb,
+        opacity=opacity,
+        depth=depth,
+        bbox=bbox,
+        cull_bbox=_alpha_cull_bbox(screen_means[:, 0], screen_means[:, 1], cov2d[:, 0, 0], cov2d[:, 1, 1], opacity,
+                                   bbox, width, height),
+        active=preprocess_active_mask(bbox, conics, strict_parity),
     )

@@ -232,11 +232,11 @@ def test_orbit_auto_pairs_resizes(scene_dir, tmp_path):
     assert os.path.exists(os.path.join(out, VIDEO_NAME))
 
 
-@pytest.mark.parametrize("tile", [12, 64])
+@pytest.mark.parametrize("tile", [12, 64, 100])
 def test_evaluate_at_any_tile_size(scene_dir, tmp_path, tile):
     """Every pixel composites the same gaussians in the same order whatever
-    the tiling (early stop off), so ``evaluate`` at tiles 12 and 64 writes
-    tile 32's ``metrics.json``."""
+    the tiling (early stop off), so ``evaluate`` at tiles 12, 64 and 100
+    writes tile 32's ``metrics.json``."""
     outs = []
     for ts in (32, tile):
         out = str(tmp_path / f"tile{ts}")
@@ -247,7 +247,7 @@ def test_evaluate_at_any_tile_size(scene_dir, tmp_path, tile):
     assert outs[0] == outs[1]
 
 
-@pytest.mark.parametrize("case", ["mesh", "test_every_1", "resume_without_output", "tile_65_cuda", "slice_pairs",
+@pytest.mark.parametrize("case", ["mesh", "test_every_1", "resume_without_output", "tile_0_cuda", "slice_pairs",
                                   "mesh_cuda_cards", "mesh_without_torchrun", "render_mesh_data_axis"])
 def test_usage_errors(scene_dir, tmp_path, case):
     out = str(tmp_path / "out")
@@ -259,7 +259,7 @@ def test_usage_errors(scene_dir, tmp_path, case):
         "render_mesh_data_axis": ("render", ["--no-show", "--mesh", "2x1"], "render is a single view"),
         "test_every_1": ("train", ["--steps", "2", "--no-densify", "--test-every", "1"], "holds out every view"),
         "resume_without_output": ("finetune", ["--steps", "2", "--resume"], "--resume requires --output_path"),
-        "tile_65_cuda": ("render", ["--no-show", "--tile-size", "65", "--device", "cuda"], "tile_size 65"),
+        "tile_0_cuda": ("render", ["--no-show", "--tile-size", "0", "--device", "cuda"], "tile_size 0"),
         "slice_pairs": ("evaluate", ["--slice-pairs", "100"], "multiple of pair_block"),
     }[case]
     if case == "resume_without_output":
@@ -268,6 +268,15 @@ def test_usage_errors(scene_dir, tmp_path, case):
     assert result.exit_code == 2, result.output + repr(result.exception)
     assert message in result.output
     assert not os.path.exists(os.path.join(out, "point_cloud")) and not os.path.exists(os.path.join(out, "render.png"))
+
+
+@pytest.mark.parametrize("tile", [65, 128, 256])
+def test_tile_above_64_taken_for_cuda(tile):
+    """On the card ``--tile-size`` takes every positive edge: the settings
+    check passes tiles above 64 (pixel groups) as the JAX CLI does."""
+    from gsplat_tpu_torch.cli import _raster_config
+
+    assert _raster_config(tile, 32, 1 << 22, 1e-4, "cuda").tile_size == tile
 
 
 def test_cuda_without_card_fails(scene_dir, tmp_path):

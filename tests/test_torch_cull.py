@@ -14,8 +14,11 @@ forced to 0 at the pixels of the 8x4 warp rects its rect misses (the grid of
 rects from each tile's first pixel, rounded up past the tile's edge), which
 must leave colour, T, ``blocks_done``, the backward rows and the carried
 walk state bitwise unchanged, and check the tilings the kernels take (every
-tile edge from 1 to 64, every positive pair block), how a tile's rects map
-onto warps, and the backward's shared memory. The kernels themselves are held to the plain
+positive tile edge and pair block), how a tile's rects map onto warps, the
+backward's shared memory, and the pixel groups of tiles above 64: the plain
+forward run group by group, each group with its own early-stop vote and
+then the resume to its tile's last group's block (``cull.resume_ranges``),
+is bitwise the unsplit walk. The kernels themselves are held to the plain
 versions on the card (``tests/test_torch_gpu.py``).
 """
 
@@ -36,6 +39,7 @@ from gsplat_tpu_torch.ops import binning as B
 from gsplat_tpu_torch.ops.camera import CameraParams
 from gsplat_tpu_torch.ops.compositing import MIN_ALPHA_F32, gaussian_alpha
 from gsplat_tpu_torch.render.pipeline import preprocess
+from gsplat_tpu_torch.render.tile_torch import tile_pixel_coords
 
 from fixtures import orbit_camera, random_splat_arrays
 
@@ -162,7 +166,10 @@ def _culled_alpha(px, py, mean_x, mean_y, conic_x, conic_y, conic_xy, opacity):
         rows[:, i] = v.reshape(-1)
     rows[:, B.FEAT_X_MIN:B.FEAT_Y_MAX + 1] = torch.tensor([-1e6, -1e6, 1e6, 1e6])
     rect = cull.pair_alpha_rect(rows).reshape(*lead[0].shape, 4)
-    ox, oy = px[..., :1], py[..., :1]  # each tile's first pixel: the grid of rects starts there
+    ox, oy = px[..., :1], py[..., :1]  # each tile's first pixel
+    # The grid of rects starts at the first pixel of each pixel's group (the tile's up to 64).
+    edge = cull.group_layout(int(round(px.shape[-1] ** 0.5)))[1]
+    ox, oy = ox + torch.floor((px - ox) / edge) * edge, oy + torch.floor((py - oy) / edge) * edge
     wx0, wy0 = ox + torch.floor((px - ox) / ww) * ww, oy + torch.floor((py - oy) / wh) * wh
     meets = ((torch.maximum(rect[..., 0], wx0) < torch.minimum(rect[..., 2], wx0 + ww))
              & (torch.maximum(rect[..., 1], wy0) < torch.minimum(rect[..., 3], wy0 + wh)))
@@ -215,13 +222,15 @@ def test_culled_walk_is_exact(binned_dense, monkeypatch, stop):
         assert (want[2] < -(-args[3] // cfg.pair_block)).any(), "some tile stops early"
 
 
-@pytest.mark.parametrize("tile,pair_block", [(12, 8), (20, 16), (4, 8), (40, 32)])
+@pytest.mark.parametrize("tile,pair_block", [(12, 8), (20, 16), (4, 8), (40, 32), (65, 8), (100, 16)])
 def test_culled_walk_is_exact_on_padded_grid(monkeypatch, tile, pair_block):
     """Tiles that are not a multiple of the 8x4 rect: the kernels round the
     grid of rects up past the tile's edge, and a pair whose alpha-bound
     rect meets only the part of a rect past the edge is still walked there
-    (at pixels no lane owns). The culled walk stays bitwise the plain walk,
-    early stop on and off."""
+    (at pixels no lane owns). Tiles 65 and 100 are cut into pixel groups of
+    edge 33 and 50, each with its own grid from its first pixel, rounded up
+    past the group's edge into the next group. The culled walk stays
+    bitwise the plain walk, early stop on and off."""
     model = tgs.GaussianModel.from_arrays(_scene(6, 300, 2.5), device="cpu")
     camera = CameraParams(**dataclasses.asdict(orbit_camera(0.15, width=WALK_W, height=WALK_H)))
     base = tgs.RasterConfig(tile_size=tile, chunk_size=8, pair_block=pair_block, max_pairs=1 << 15)
@@ -270,10 +279,12 @@ def test_cull_counts_match_brute_force():
 
 @pytest.mark.parametrize("tile,pair_block,ok", [(16, 8, True), (32, 128, True), (8, 128, True), (16, 512, True),
                                                 (16, 0, False), (12, 8, True), (4, 8, True), (64, 8, True),
-                                                (16, 4096, True), (1, 8, True), (0, 8, False), (65, 8, False)])
+                                                (16, 4096, True), (1, 8, True), (0, 8, False), (65, 8, True),
+                                                (-3, 8, False), (128, 128, True), (256, 2048, True)])
 def test_check_tiling(tile, pair_block, ok):
-    """The kernels take every tile edge from 1 to 64 and every positive pair
-    block; shared memory over ``MAX_SMEM`` is refused."""
+    """The kernels take every positive tile edge (above 64 as pixel groups)
+    and every positive pair block; shared memory over ``MAX_SMEM`` is
+    refused."""
     if ok:
         cull.check_tiling("k", tile, pair_block, 1024)
     else:
@@ -286,13 +297,15 @@ def test_check_tiling(tile, pair_block, ok):
 @pytest.mark.parametrize("tile,pair_block,round_pairs", [(8, 128, 128), (16, 8, 8), (16, 512, 256), (24, 128, 128),
                                                           (32, 128, 128), (32, 256, 32), (32, 945, 32), (4, 8, 8),
                                                           (12, 2048, 256), (40, 2048, 32), (64, 128, 128),
-                                                          (64, 4096, 32)])
+                                                          (64, 4096, 32), (65, 128, 128), (100, 2048, 32),
+                                                          (128, 128, 128), (256, 8, 8)])
 def test_tilings_fit_shared_memory(tile, pair_block, round_pairs):
     """Every tiling fits both kernels' shared memory: the staging holds
     sub-batches of at most ``SUB_ROWS`` rows whatever the pair block, and
     the backward sums a whole sub-batch per round where the slots of its
     warps (at most 32, however many pixels the tile has) fit, else rounds
-    of 32 pairs (``sum_round`` in ``csrc/raster_bwd.cu``)."""
+    of 32 pairs (``sum_round`` in ``csrc/raster_bwd.cu``). A tile above 64
+    takes the shared memory of its pixel group's block."""
     warps = cull.warp_layout(tile)[2]
     assert raster_bwd._sum_round(tile, pair_block) == round_pairs
     bwd = raster_bwd._smem_bytes(tile, pair_block)
@@ -303,36 +316,51 @@ def test_tilings_fit_shared_memory(tile, pair_block, round_pairs):
 
 
 @pytest.mark.parametrize("tile,layout", [(1, (1, 1, 1)), (4, (1, 1, 1)), (12, (1, 1, 6)), (32, (1, 1, 32)),
-                                         (33, (1, 2, 25)), (40, (1, 2, 25)), (44, (2, 2, 18)), (64, (2, 2, 32))])
+                                         (33, (1, 2, 25)), (40, (1, 2, 25)), (44, (2, 2, 18)), (64, (2, 2, 32)),
+                                         (65, (1, 2, 25)), (100, (2, 2, 28)), (128, (2, 2, 32)),
+                                         (256, (2, 2, 32))])
 def test_warp_layout(tile, layout):
     """One pixel a thread up to 32 rects, then 1x2 and 2x2 rects a warp;
-    the rect grid covers the tile."""
+    the rect grid covers the block's pixels: the tile up to 64, above it
+    each of its n x n pixel groups (65: 2x2 groups of edge 33, 100: of 50,
+    128: of 64, 256: 4x4 of 64), which tile the tile."""
+    n, edge = cull.group_layout(tile)
+    assert (n, edge) == ((1, tile) if tile <= 64 else {65: (2, 33), 100: (2, 50), 128: (2, 64), 256: (4, 64)}[tile])
+    assert edge <= 64 and n * edge >= tile > (n - 1) * edge
     fx, fy, warps = cull.warp_layout(tile)
-    assert (fx, fy, warps) == layout
-    rx, ry = cull.rect_grid(tile)
-    assert rx * 8 >= tile > (rx - 1) * 8 and ry * 4 >= tile > (ry - 1) * 4
+    assert (fx, fy, warps) == layout == cull.warp_layout(edge)
+    rx, ry = cull.rect_grid(edge)
+    assert rx * 8 >= edge > (rx - 1) * 8 and ry * 4 >= edge > (ry - 1) * 4
     assert -(-rx // fx) * -(-ry // fy) == warps <= 32
+    pixels = cull.group_pixels(tile)
+    assert len(pixels) == n * n
+    assert torch.equal(torch.sort(torch.cat(pixels)).values, torch.arange(tile * tile))
 
 
-@pytest.mark.parametrize("tile", [12, 20, 4])
+@pytest.mark.parametrize("tile", [12, 20, 4, 65, 100])
 def test_cull_counts_follow_the_padded_grid(tile):
     """``cull_counts`` on a tile that is not a multiple of the rect: the
     pixels are the tile's, the warp rects those of the grid rounded up past
-    its edge that the rect meets (where a warp walks the pair)."""
+    its edge that the rect meets (where a warp walks the pair); above 64,
+    those of each pixel group's grid, rounded up past the group's edge."""
     rng = np.random.default_rng(tile)
     lo = rng.integers(-10, 3 * tile, (200, 2))
     rect = torch.tensor(np.concatenate([lo, lo + rng.integers(-2, 2 * tile, (200, 2))], 1), dtype=torch.float32)
     ox = torch.tensor(rng.integers(0, 3, 200) * tile)
     oy = torch.tensor(rng.integers(0, 2, 200) * tile)
     pixels, warps = cull.cull_counts(rect, ox, oy, tile)
-    rx, ry = cull.rect_grid(tile)
+    rx, ry = cull.rect_grid(cull.group_layout(tile)[1])
     for i in range(200):
         x0, y0, x1, y1 = rect[i].tolist()
-        ox_i, oy_i = int(ox[i]), int(oy[i])
-        grid = [(x, y) for y in range(oy_i, oy_i + 4 * ry) for x in range(ox_i, ox_i + 8 * rx)
-                if x0 <= x < x1 and y0 <= y < y1]
-        assert int(pixels[i]) == sum(x < ox_i + tile and y < oy_i + tile for x, y in grid)
-        assert int(warps[i]) == len({((x - ox_i) // 8, (y - oy_i) // 4) for x, y in grid})
+        want_pixels = want_warps = 0
+        for gx0, gy0, gx1, gy1 in cull.group_rects(tile):
+            ox_i, oy_i = int(ox[i]) + gx0, int(oy[i]) + gy0
+            grid = [(x, y) for y in range(oy_i, oy_i + 4 * ry) for x in range(ox_i, ox_i + 8 * rx)
+                    if x0 <= x < x1 and y0 <= y < y1]
+            want_pixels += sum(x < int(ox[i]) + gx1 and y < int(oy[i]) + gy1 for x, y in grid)
+            want_warps += len({((x - ox_i) // 8, (y - oy_i) // 4) for x, y in grid})
+        assert int(pixels[i]) == want_pixels
+        assert int(warps[i]) == want_warps
 
 
 def test_chip_smoke_counts_match_brute_force(binned_dense):
@@ -371,3 +399,64 @@ def test_chip_smoke_counts_match_brute_force(binned_dense):
     report = ["ptxas info    : Used 62 registers, used 1 barriers, 400 bytes cmem[0]",
               "ptxas info    : 8 bytes stack frame, 4 bytes spill stores, 12 bytes spill loads"]
     assert chip_smoke.ptxas_resources(report) == {"registers": 62, "spill_stores": 4, "spill_loads": 12}
+
+
+GROUP_W, GROUP_H = 160, 120
+
+
+@pytest.fixture(scope="module")
+def group_prep():
+    """600 splats grown until tiles of 65 to 256 pixels stop early on a
+    160x120 frame."""
+    model = tgs.GaussianModel.from_arrays(_scene(6, 600, 3.0), device="cpu")
+    camera = CameraParams(**dataclasses.asdict(orbit_camera(0.15, width=GROUP_W, height=GROUP_H)))
+    with torch.no_grad():
+        return preprocess(model, camera, WALK_CFG)
+
+
+@pytest.mark.parametrize("stop", [0.0, 1e-4])
+@pytest.mark.parametrize("tile", [65, 100, 128, 256])
+def test_group_walk_is_the_tile_walk(group_prep, tile, stop):
+    """The kernels' walk of a tile above 64 (``csrc/raster_fwd.cu``), in
+    the plain version: each pixel group composited on its own
+    (``raster_fwd.composite_pixels`` at the group's pixels), voting on its
+    own coverable pixels, then, with early stop on, resumed from its colour
+    and T over the blocks ``cull.resume_ranges`` gives it, the vote off.
+    The frame is bitwise the unsplit plain walk's and the tile's
+    ``blocks_done`` the most over its groups. On the 160x120 frame some
+    groups lie wholly outside it (at tile 256, 10 of 16) and vote to stop
+    after one block, as JAX's ``inframe`` mask has them."""
+    cfg = tgs.RasterConfig(tile_size=tile, chunk_size=8, pair_block=8, max_pairs=1 << 15,
+                           early_stop_transmittance=stop)
+    bins = B.bin_gaussians(group_prep, GROUP_W, GROUP_H, tile, cfg.max_pairs, align=cfg.pair_block)
+    ntx = -(-GROUP_W // tile)
+    tile_ids = torch.arange(ntx * -(-GROUP_H // tile), dtype=torch.int32)
+    feat = B.pack_features(group_prep)
+    args = (feat, bins.pair_gaussian, bins.tile_start, bins.tile_count, tile_ids)
+    want = raster_fwd.forward_tiles_plain(*args, ntx, cfg, GROUP_W, GROUP_H)
+
+    px, py = tile_pixel_coords(tile_ids, ntx, tile, torch.float32)
+    votes = (px < GROUP_W - 1) & (py < GROUP_H - 1)
+    groups = cull.group_pixels(tile)
+    firsts = [raster_fwd.composite_pixels(*args[:4], px[:, idx], py[:, idx], votes[:, idx], cfg) for idx in groups]
+    group_done = torch.stack([f[2] for f in firsts], dim=1)
+    tile_done, start, count = cull.resume_ranges(group_done, bins.tile_start, bins.tile_count, cfg.pair_block)
+    resume_cfg = dataclasses.replace(cfg, early_stop_transmittance=0.0)
+    color, trans = torch.empty_like(want[0]), torch.empty_like(want[1])
+    for g, (idx, (c, tr, _)) in enumerate(zip(groups, firsts)):
+        if stop > 0:
+            c, tr, done = raster_fwd.composite_pixels(feat, bins.pair_gaussian, start[:, g], count[:, g], px[:, idx],
+                                                      py[:, idx], votes[:, idx], resume_cfg, carry=(c, tr))
+            assert torch.equal(done, tile_done - group_done[:, g]), "the resume walks the blocks left"
+        color[:, idx], trans[:, idx] = c, tr
+    assert torch.equal(color, want[0]) and torch.equal(trans, want[1])
+    assert torch.equal(tile_done, want[2])
+    assert torch.equal(count.sum(1) == 0, (group_done == tile_done[:, None]).all(1))
+    if stop > 0:
+        assert (group_done < tile_done[:, None]).any(), "some group stops before its tile's last"
+        assert (want[2] < -(-bins.tile_count // cfg.pair_block)).any(), "some tile stops early"
+    else:
+        assert torch.equal(group_done, tile_done[:, None].expand_as(group_done))
+    if tile == 256:
+        outside = [(x0 >= GROUP_W - 1) or (y0 >= GROUP_H - 1) for x0, y0, _, _ in cull.group_rects(tile)]
+        assert sum(outside) == 10

@@ -25,6 +25,13 @@ Both kernels walk, in each warp, only the pairs whose alpha-bound rect meets
 the warp's pixel rect, and stage pair rows two batches ahead; hand-built
 inputs (``_synthetic``) probe the edges of both, with the forward held
 bitwise to its plain version.
+
+Tiles above 64 run as pixel groups of one thread block each: the forward
+with early stop on takes a second launch, the resume, counted apart
+(``resume_launches``), and the backward adds the groups' partial rows in
+group order. ``test_large_tiles_match_plain`` holds all four kernels to
+their plain versions there, on a frame smaller than the largest tiles, so
+that whole groups lie outside it.
 """
 
 import dataclasses
@@ -56,7 +63,7 @@ def device():
     return torch.device("cuda")
 
 
-def scene(device, n=800, grow=2.0, seed=6):
+def scene(device, n=800, grow=2.0, seed=6, width=WIDTH, height=HEIGHT):
     """Random splats in front of a camera at +z (the ``fixtures.py``
     distribution, grown so that tiles saturate and early stop triggers)."""
     rng = np.random.default_rng(seed)
@@ -67,9 +74,9 @@ def scene(device, n=800, grow=2.0, seed=6):
         "opacity_logits": (rng.uniform(-1.0, 4.0, n) + grow).astype(np.float32),
         "sh": (rng.normal(size=(n, 16, 3)) * 0.3).astype(np.float32),
     }
-    fx = 0.8 * WIDTH
+    fx = 0.8 * width
     camera = tgs.CameraParams(
-        WIDTH, HEIGHT, 2 * math.atan(WIDTH / (2 * fx)), 2 * math.atan(HEIGHT / (2 * fx)), fx, fx,
+        width, height, 2 * math.atan(width / (2 * fx)), 2 * math.atan(height / (2 * fx)), fx, fx,
         (math.cos(0.075), 0.0, math.sin(0.075), 0.0), (0.0, 0.0, 4.0),
     )
     return tgs.GaussianModel.from_arrays(arrays, device=device), camera
@@ -188,7 +195,7 @@ def test_backward_kernel_rejects_bad_inputs(binned):
     with pytest.raises(ValueError, match="blocks_done"):
         backward_tiles(*args, color, trans, color, trans, ntx, CFG, done.long())
     with pytest.raises(ValueError, match="not supported"):
-        backward_tiles(*args, color, trans, color, trans, ntx, dataclasses.replace(CFG, tile_size=65), done)
+        backward_tiles(*args, color, trans, color, trans, ntx, dataclasses.replace(CFG, tile_size=0), done)
 
 
 def _two_slices(args):
@@ -340,7 +347,8 @@ def _synthetic(kind, tile_size, pair_block, seed=0):
 
 
 @pytest.mark.parametrize("tiling", [(16, 8), (32, 128), (8, 128), (32, 256), (1, 8), (4, 8), (12, 8), (20, 128),
-                                    (33, 296), (48, 600), (64, 128), (64, 2048)])
+                                    (33, 296), (48, 600), (64, 128), (64, 2048), (65, 8), (100, 128), (128, 296),
+                                    (256, 2048)])
 @pytest.mark.parametrize("kind", ["warp_edges", "corner", "ragged", "many_batches", "whole_tile"])
 def test_culled_kernels_match_plain(device, kind, tiling):
     """Both kernels and their carry forms on the culling and staging edge
@@ -352,7 +360,8 @@ def test_culled_kernels_match_plain(device, kind, tiling):
     in rounds of 32 pairs. Tiles 1, 4, 12, 20 and 33 round the warp-rect
     grid up past the tile's edge; 33 and 48 give each thread two and four
     pixels, 64 four; pair blocks 296, 600 and 2048 are staged in sub-batches
-    of at most 256 rows, the early-stop vote still per pair block."""
+    of at most 256 rows, the early-stop vote still per pair block. Tiles
+    65, 100, 128 and 256 are cut into 2x2 or 4x4 pixel groups."""
     tile_size, pair_block = tiling
     args = tuple(t.to(device) for t in _synthetic(kind, tile_size, pair_block))
     width = height = 2 * tile_size
@@ -380,6 +389,80 @@ def test_culled_kernels_match_plain(device, kind, tiling):
         torch.testing.assert_close(c_out[:, 1], pc_out[:, 1], rtol=RTOL, atol=ATOL)
         _close_to_max(c_out[:, 0], pc_out[:, 0])
         assert torch.equal(rows, rows2) and torch.equal(rows, c_rows)
+
+
+LARGE_W, LARGE_H = 160, 120
+
+
+@pytest.mark.parametrize("pair_block", [8, 128])
+@pytest.mark.parametrize("tile_size", [65, 100, 128, 256])
+def test_large_tiles_match_plain(device, tile_size, pair_block):
+    """All four kernels at tiles above 64, on a 160x120 frame (at 128 and
+    256 some pixel groups lie wholly outside it), early stop off and 1e-4:
+    the forward and its carry form bitwise their plain versions with
+    ``blocks_done`` equal (one launch each, and one resume launch each with
+    early stop on), the backward and its carry form within the tolerance,
+    every kernel twice bitwise; the carry forms on two slices of every
+    tile's pairs."""
+    model, camera = scene(device, n=1500, grow=1.5, seed=9, width=LARGE_W, height=LARGE_H)
+    base = tgs.RasterConfig(tile_size=tile_size, chunk_size=8, pair_block=pair_block, max_pairs=1 << 18)
+    with torch.no_grad():
+        prep = preprocess(model, camera, base)
+        bins = binning.bin_gaussians(prep, LARGE_W, LARGE_H, tile_size, base.max_pairs, align=pair_block)
+        ntx = -(-LARGE_W // tile_size)
+        tile_ids = torch.arange(ntx * -(-LARGE_H // tile_size), dtype=torch.int32, device=device)
+        args = (binning.pack_features(prep), bins.pair_gaussian, bins.tile_start, bins.tile_count, tile_ids)
+    feat, pair_gaussian, _, _, _ = args
+    num_t, npix = tile_ids.shape[0], tile_size ** 2
+    for stop in (0.0, 1e-4):
+        cfg = dataclasses.replace(base, early_stop_transmittance=stop)
+        resumes = int(stop > 0)
+        before = forward_tiles.launches, forward_tiles.resume_launches
+        got = forward_tiles(*args, ntx, cfg, LARGE_W, LARGE_H)
+        again = forward_tiles(*args, ntx, cfg, LARGE_W, LARGE_H)
+        torch.cuda.synchronize()
+        assert (forward_tiles.launches, forward_tiles.resume_launches) == (before[0] + 2, before[1] + 2 * resumes)
+        want = forward_tiles_plain(*args, ntx, cfg, LARGE_W, LARGE_H)
+        for g, a, w in zip(got, again, want):
+            assert torch.equal(g, w) and torch.equal(g, a)
+        gen = torch.Generator(device=device).manual_seed(4)
+        g_color = torch.randn(got[0].shape, generator=gen, device=device)
+        g_trans = torch.randn(got[1].shape, generator=gen, device=device)
+        outs = (*got[:2], g_color, g_trans)
+        rows = backward_tiles(*args, *outs, ntx, cfg, got[2])
+        rows2 = backward_tiles(*args, *outs, ntx, cfg, got[2])
+        torch.cuda.synchronize()
+        _close_to_max(rows, backward_tiles_plain(*args, *outs, ntx, cfg, got[2]))
+        assert torch.equal(rows, rows2)
+
+        carry = (torch.zeros(num_t, npix, 3, device=device), torch.ones(num_t, npix, device=device))
+        before = forward_tiles_carry.launches, forward_tiles_carry.resume_launches
+        slices = []
+        for start, count in _two_slices(args):
+            s_args = (feat, pair_gaussian, start, count, tile_ids)
+            c_got = forward_tiles_carry(*s_args, *carry, ntx, cfg, LARGE_W, LARGE_H)
+            c_again = forward_tiles_carry(*s_args, *carry, ntx, cfg, LARGE_W, LARGE_H)
+            torch.cuda.synchronize()
+            c_want = forward_tiles_plain(*s_args, ntx, cfg, LARGE_W, LARGE_H, carry=carry)
+            for g, a, w in zip(c_got, c_again, c_want):
+                assert torch.equal(g, w) and torch.equal(g, a)
+            slices.append((s_args, c_got[2]))
+            carry = c_got[:2]
+        assert (forward_tiles_carry.launches, forward_tiles_carry.resume_launches) == (
+            before[0] + 4, before[1] + 4 * resumes)
+        if stop == 0.0:
+            assert torch.equal(carry[0], got[0]) and torch.equal(carry[1], got[1])
+        state = walk_state(*carry, g_color, g_trans)
+        for s_args, done in slices:
+            c_rows, c_out = backward_tiles_carry(*s_args, state, g_color, ntx, cfg, done)
+            c_rows2, c_out2 = backward_tiles_carry(*s_args, state, g_color, ntx, cfg, done)
+            torch.cuda.synchronize()
+            p_rows, p_out = backward_tiles_plain(*s_args, None, None, g_color, None, ntx, cfg, done, state)
+            _close_to_max(c_rows, p_rows)
+            torch.testing.assert_close(c_out[:, 1], p_out[:, 1], rtol=RTOL, atol=ATOL)
+            _close_to_max(c_out[:, 0], p_out[:, 0])
+            assert torch.equal(c_rows, c_rows2) and torch.equal(c_out, c_out2)
+            state = c_out
 
 
 def _pool_arrays(c, seed):

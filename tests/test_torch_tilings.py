@@ -3,10 +3,11 @@ against JAX.
 
 The JAX package takes any positive ``tile_size`` and any ``pair_block``
 that is a multiple of ``chunk_size``; so does the port: on the CPU its
-plain compositors, on the card its CUDA kernels (a tile edge from 1 to 64,
-the grid of 8x4 warp rects rounded up past the tile's edge, one to four
-pixels a thread, pair rows staged in sub-batches of at most 256). Here, on
-the CPU, at tiles 4, 12, 20 and 64 and at pair block 2048, one JAX
+plain compositors, on the card its CUDA kernels (the grid of 8x4 warp
+rects rounded up past the tile's edge, one to four pixels a thread, pair
+rows staged in sub-batches of at most 256, and a tile above 64 cut into
+pixel groups of one thread block each). Here, on the CPU, at tiles 4, 12,
+20, 64, 80 and 128 and at pair block 2048, one JAX
 preprocess of a 70x50 view is binned by the port at each tiling and the
 same binned inputs go through:
 
@@ -16,7 +17,13 @@ same binned inputs go through:
   reduction against ``backward_tiles_jnp`` and ``backward_tiles_pallas``
   (sorted reduction) in interpret mode, at rtol 5e-4 / atol 1e-5 of the
   gradient scale, the sorted reduction's tolerance in
-  ``tests/test_torch_grad.py``.
+  ``tests/test_torch_grad.py``. The Pallas backward sums its per-pair
+  pixel terms through moments about the tile's origin on the matrix unit,
+  which loses accuracy as the tile grows: against the exact (float64) sum
+  of the same walk it is 1.9e-5 of the scale off at tile 64 and 9.3e-5 at
+  tile 128, where the port and the jnp path stay within 1e-6. So above 64
+  the port is held to the Pallas result at that tolerance plus the Pallas
+  result's own distance from the float64 sum, element by element.
 
 The whole render and its gradients at these tilings are in
 ``tests/test_torch_tilings_render.py``.
@@ -44,7 +51,7 @@ from fixtures import orbit_camera, random_splat_arrays
 
 WIDTH, HEIGHT = 70, 50
 # (tile_size, chunk_size, pair_block)
-TILINGS = [(4, 8, 8), (12, 8, 8), (20, 8, 16), (64, 8, 32), (32, 1024, 2048)]
+TILINGS = [(4, 8, 8), (12, 8, 8), (20, 8, 16), (64, 8, 32), (32, 1024, 2048), (80, 8, 16), (128, 8, 32)]
 
 
 def t(x):
@@ -99,4 +106,14 @@ def test_compositors_match_jax(prep, tiling):
     close_to_scale(got, want_jnp, 5e-4, 1e-5)
     want_pallas = backward_tiles_pallas(*jargs, *outs, ntx, jcfg, blocks_done=p_done,
                                         gaussian_counts=jnp.asarray(counts.numpy()), interpret=True)
-    close_to_scale(got, np.asarray(want_pallas)[:-1, :9], 5e-4, 1e-5)
+    want_pallas = np.asarray(want_pallas)[:-1, :9]
+    if ts <= 64:
+        close_to_scale(got, want_pallas, 5e-4, 1e-5)
+        return
+    rows64 = backward_tiles_plain(args[0].double(), *args[1:], color.double(), trans.double(),
+                                  t(g_color).double(), t(g_trans).double(), ntx, cfg, done)
+    exact = reduce_pair_grads(rows64, args[1], counts, args[0].shape[0])[:-1, :9].numpy()
+    close_to_scale(got, exact, 5e-4, 1e-5)
+    slack = np.abs(want_pallas - exact)
+    bound = 5e-4 * np.abs(want_pallas) + 1e-5 * (np.abs(want_pallas).max() + 1e-8) + slack
+    assert (np.abs(got - want_pallas) <= bound).all()

@@ -2,8 +2,9 @@
 takes, and ``RasterConfig.exact_grad_reduction``, held against JAX.
 
 With early stop off every pixel composites the same depth-ordered gaussians
-whatever the tiling, so the port's frame at tiles 4, 12, 20 and 64 and at
-pair block 2048 is bitwise its tile-16 frame, and its render and parameter
+whatever the tiling, so the port's frame at tiles 4, 12, 20, 64 and 100
+(on the card, pixel groups of edge 50) and at pair block 2048 is bitwise
+its tile-16 frame, and its render and parameter
 gradients are held to one JAX ``render`` + ``jax.grad`` on the jnp path at
 rtol 1e-5 / atol 1e-6 and rtol 2e-3 / atol 5e-5 of each gradient's scale
 (``tests/test_torch_grad.py``). ``tests/test_torch_tilings.py`` holds the
@@ -43,7 +44,7 @@ from fixtures import orbit_camera, random_splat_arrays
 WIDTH, HEIGHT = 70, 50
 NAMES = ("means", "log_scales", "quats", "opacity_logits", "sh")
 # (tile_size, chunk_size, pair_block)
-TILINGS = [(4, 8, 8), (12, 8, 8), (20, 8, 16), (64, 8, 32), (16, 32, 2048)]
+TILINGS = [(4, 8, 8), (12, 8, 8), (20, 8, 16), (64, 8, 32), (16, 32, 2048), (100, 8, 32)]
 
 
 def t(x):

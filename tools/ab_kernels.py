@@ -1,22 +1,25 @@
 #!/usr/bin/env python3
 """Compare two checkouts' CUDA compositors alone, in one process on one card.
 
-Usage: ``python3 tools/ab_kernels.py PARENT_DIR [--rounds 8] [--out DIR]``
-from the root of the change's checkout, on a machine with a CUDA card and
-``nvcc``. It builds ``gsplat_tpu_torch/csrc/raster_fwd.cu`` and
-``raster_bwd.cu`` of both checkouts with the change's ``build.NVCC_FLAGS``
-(one ``nvcc`` per source, all started together) into ``--out`` (default a
-temporary directory), prints each kernel's registers and spill bytes from
-the ``-Xptxas -v`` report, then calls both sides through ``ctypes`` on the
-same inputs: the headline scene of ``chip_smoke.py`` (1M gaussians, 1920x1080,
-tile 32, pair block 128, capacity 1.5x the demand) binned by the change's
-Python, random cotangents, and a carry state from the single pass. It
-checks that the change's forward, backward and both carry forms are bitwise
-the parent's, and times each kernel with CUDA events (median of 20
-launches) over ``--rounds`` rounds that alternate which side runs first.
-The last line is one JSON object: each kernel's median, quartiles and runs
-per side, the share of rounds the change wins, and the card's name and
-power limit. Both sides must keep the C entry points' signatures.
+Usage: ``python3 tools/ab_kernels.py PARENT_DIR [--rounds 8] [--tiles
+16,32,64] [--out DIR]`` from the root of the change's checkout, on a
+machine with a CUDA card and ``nvcc``. It builds
+``gsplat_tpu_torch/csrc/raster_fwd.cu`` and ``raster_bwd.cu`` of both
+checkouts with the change's ``build.NVCC_FLAGS`` (one ``nvcc`` per source,
+all started together) into ``--out`` (default a temporary directory),
+prints each kernel's registers and spill bytes from the ``-Xptxas -v``
+report, then calls both sides through ``ctypes`` on the same inputs, at
+each tile edge of ``--tiles`` (each one thread block a tile: 1 to 64): the
+headline scene of ``chip_smoke.py`` (1M gaussians, 1920x1080, pair block
+128, capacity 1.5x the tiling's demand) binned by the change's Python,
+random cotangents, and a carry state from the single pass. It checks that
+the change's forward, backward and both carry forms are bitwise the
+parent's, and times each kernel with CUDA events (median of 20 launches)
+over ``--rounds`` rounds that alternate which side runs first. The last
+line is one JSON object: at each tile, each kernel's bitwise check,
+median, quartiles and runs per side and the share of rounds the change
+wins; and the card's name and power limit. Both sides must keep the C
+entry points' signatures (``gsplat_raster_fwd``, ``gsplat_raster_bwd``).
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("parent")
     parser.add_argument("--rounds", type=int, default=8)
+    parser.add_argument("--tiles", default="16,32,64", help="tile edges, comma-separated, each 1 to 64")
     parser.add_argument("--out", default=None)
     opts = parser.parse_args()
     sys.path.insert(0, HERE)
@@ -46,11 +50,9 @@ def main() -> int:
         print("ab_kernels: no CUDA device", file=sys.stderr)
         return 2
     import chip_smoke as cs
-    import gsplat_tpu_torch as gs
     from gsplat_tpu_torch.kernels import build
     from gsplat_tpu_torch.kernels import raster_bwd as RB
     from gsplat_tpu_torch.kernels import raster_fwd as RF
-    from gsplat_tpu_torch.ops.compositing import MAX_GAUSSIAN_DENSITY_F32, MIN_ALPHA_F32
 
     out_dir = opts.out or tempfile.mkdtemp(prefix="ab_kernels_")
     os.makedirs(out_dir, exist_ok=True)
@@ -78,14 +80,31 @@ def main() -> int:
     dev = torch.device("cuda")
     model = cs.build_scene(cs.NUM_GAUSSIANS, 0.0, dev)
     cam0 = cs.bench_camera(cs.WIDTH, cs.HEIGHT)
+    result = {"nvidia_smi": cs.nvidia_smi_line(), "rounds": opts.rounds, "tiles": {}}
+    for ts in (int(x) for x in opts.tiles.split(",")):
+        result["tiles"][str(ts)] = compare(fns, model, cam0, ts, opts.rounds)
+        torch.cuda.empty_cache()
+    print(json.dumps(result), flush=True)
+    return 0 if all(k["bitwise"] for tile in result["tiles"].values() for k in tile.values()) else 1
+
+
+def compare(fns, model, cam0, tile_size, rounds) -> dict:
+    """Both sides' four kernels at one tile edge: bitwise checks and times."""
+    import torch
+
+    import chip_smoke as cs
+    import gsplat_tpu_torch as gs
+    from gsplat_tpu_torch.kernels import raster_bwd as RB
+    from gsplat_tpu_torch.ops.compositing import MAX_GAUSSIAN_DENSITY_F32, MIN_ALPHA_F32
+
+    dev = model.means.device
     with torch.inference_mode():
-        probe = gs.RasterConfig(tile_size=32, chunk_size=32, max_pairs=1 << 20)
+        probe = gs.RasterConfig(tile_size=tile_size, chunk_size=32, max_pairs=1 << 20)
         demand = int(gs.binning_stats(model, gs.CameraArrays.from_params(cam0, device=dev), cs.WIDTH, cs.HEIGHT,
                                       probe)["pair_demand"])
-        cfg = gs.RasterConfig(tile_size=32, chunk_size=32, pair_block=128, sh_degree=3,
+        cfg = gs.RasterConfig(tile_size=tile_size, chunk_size=32, pair_block=128, sh_degree=3,
                               max_pairs=max(int(demand * 1.5) // 128 * 128, cs.CAPACITY_FLOOR))
         args, _, ntx = cs.binned_inputs(model, cam0, cfg)
-    del model
     num_t, npix = args[4].shape[0], cfg.tile_size ** 2
     stream = torch.cuda.current_stream(dev).cuda_stream
 
@@ -122,13 +141,13 @@ def main() -> int:
 
     kernels = {"raster_fwd": lambda side: fwd(side), "raster_bwd": lambda side: bwd(side)[:1],
                "raster_fwd_carry": lambda side: fwd(side, carry), "raster_bwd_carry": lambda side: bwd(side, state)}
-    bitwise = {}
+    out = {}
     for name, run in kernels.items():
         a, b = run("parent"), run("change")
         torch.cuda.synchronize()
-        bitwise[name] = all(torch.equal(x, y) for x, y in zip(a, b))
+        out[name] = {"bitwise": all(torch.equal(x, y) for x, y in zip(a, b))}
     times = {(name, side): [] for name in kernels for side in ("parent", "change")}
-    for r in range(opts.rounds):
+    for r in range(rounds):
         for side in ("parent", "change") if r % 2 == 0 else ("change", "parent"):
             for name, run in kernels.items():
                 times[name, side].append(cs.cuda_ms(lambda: run(side), 20))
@@ -137,13 +156,11 @@ def main() -> int:
         q = statistics.quantiles(v, n=4)
         return {"median": statistics.median(v), "quartiles": [q[0], q[2]], "runs": v}
 
-    result = {"bitwise": bitwise, "nvidia_smi": cs.nvidia_smi_line(), "rounds": opts.rounds}
     for name in kernels:
         p, c = times[name, "parent"], times[name, "change"]
-        result[name] = {"parent": stats(p), "change": stats(c),
-                        "change_wins": sum(x < y for x, y in zip(c, p)) / len(p)}
-    print(json.dumps(result), flush=True)
-    return 0 if all(bitwise.values()) else 1
+        out[name].update({"parent": stats(p), "change": stats(c),
+                          "change_wins": sum(x < y for x, y in zip(c, p)) / len(p)})
+    return out
 
 
 if __name__ == "__main__":
