@@ -4,7 +4,7 @@
 Usage: ``python3 chip_smoke.py`` from the repository root, on a machine with
 one NVIDIA H100 (or another sm_90a card) and the CUDA toolkit. It builds the
 port's CUDA kernels from ``gsplat_tpu_torch/csrc`` (into ``build/kernels``),
-then runs twelve phases, each printing one JSON line:
+then runs thirteen phases, each printing one JSON line:
 
   1. device: the card's name and power limit, torch/CUDA versions, kernel
      build time, the compiler's register report and each kernel's
@@ -104,6 +104,19 @@ then runs twelve phases, each printing one JSON line:
      four kernels against their plain versions (the carry forms on every
      depth slice), each twice bitwise; above 64 with early stop on, every
      forward call with its resume launch.
+ 13. scaling: the scaling harness (``scaling_phase``,
+     ``tools/multihost.py``). Model mode on the phase-3 scene at tile
+     factors 1, 2, 4 and 8 (tile 32, early stop 1e-4): shard (0, 0)'s
+     stages timed on this card, every time finite and positive, each
+     shard's pairs within its capacity, tp=1's pairs the unsharded
+     binning's, and the strided extraction of the global
+     ``coverage_histogram`` equal to the shard's tile counts at every tp;
+     at every tp the forward on the shard's inputs bitwise its plain
+     version and, tile by tile, the unsharded render, and the backward
+     within ``rows_error`` of its plain version; then launch mode at 1x1
+     under ``torch.distributed.run`` in a subprocess (exit 0, one forward
+     and one backward launch a step, its loss within rel 1e-5 of as many
+     ``Trainer.train_step`` calls in this process).
 
 A kernel's bound counts the work its inputs need. ``bound_ms`` charges the
 gate (and its expf) only at the walked pair-pixels inside each pair's
@@ -122,9 +135,9 @@ through its own helpers and ``gsplat_tpu_torch/utils/video.py`` and does not
 invoke it.
 
 It then prints ``nvidia-smi``'s name/power-limit line, the ``kernels`` JSON
-line (each kernel's launches on the main path and in phases 9, 10, 11 and
-12, phase 11's summed over every rank, and its times and bounds at phase
-12's tilings) and,
+line (each kernel's launches on the main path and in phases 9, 10, 11, 12
+and 13, phase 11's summed over every rank and phase 13's over model mode and
+the launch run, and its times and bounds at phase 12's tilings) and,
 last, ``{"ok": true, "device": {...}}``. Any failed check raises,
 so the script exits non-zero and prints no result; it also refuses to run
 without a CUDA device or without the ``gsplat_tpu_torch`` package beside it.
@@ -218,6 +231,12 @@ TILING_SMALL_TILES = (4, 12, 20, 40, 64, 65, 100, 128, 256)
 # tile holds all its pairs, whose count sets the plain versions' time.
 TILING_LARGE_N, TILING_LARGE_SHIFT = 6_000, 3.5
 TILING_SMALL_BLOCKS = (8, 128, 2048)
+# The scaling harness (phase 13): tools/multihost.py's model mode on the
+# headline scene at these tile factors, each stage the median of this many
+# calls, and its launch mode at 1x1 for as many steps.
+SCALING_TP = (1, 2, 4, 8)
+SCALING_STEPS = 8
+SCALING_LAUNCH_TIMEOUT_S = 300
 
 
 def emit(obj) -> None:
@@ -1198,6 +1217,30 @@ def mesh_rank(rank: int, world: int, tmp: str, cfg_fields: dict, dense_capacity:
         json.dump(out, f)
 
 
+def spawn_ranks(worlds, timeout_s: float, what: str) -> None:
+    """Run worlds of ranks started by spawn, all at once: each entry of
+    ``worlds`` is ``(fn, args, nprocs)``, and rank r runs ``fn(r, *args)``.
+    Returns once every rank has exited 0 (a rank's exception is raised
+    here); fails past ``timeout_s`` seconds from the start, and kills every
+    rank still alive on the way out."""
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    ctxs = []
+    try:
+        for fn, args, nprocs in worlds:
+            ctxs.append(mp.start_processes(fn, args=args, nprocs=nprocs, join=False, start_method="spawn"))
+        for ctx in ctxs:
+            while not ctx.join(timeout=1.0):
+                check(time.perf_counter() - t0 < timeout_s, f"{what} ran past {timeout_s} s")
+    finally:
+        for ctx in ctxs:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                p.join(30)
+
+
 def mesh_phase(cfg, frames, dense_capacity: int, dev, t_main: float, cli_root: str):
     """Phase 11: the mesh path (``gsplat_tpu_torch/parallel``). (a) A world
     of one over NCCL in this process, on the phase-3 model and poses: the
@@ -1305,16 +1348,7 @@ def mesh_phase(cfg, frames, dense_capacity: int, dev, t_main: float, cli_root: s
     cfg_fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        ctx = torch.multiprocessing.start_processes(mesh_rank, args=(4, tmp, cfg_fields, dense_capacity, dev.type), nprocs=4,
-                                                    join=False, start_method="spawn")
-        try:
-            while not ctx.join(timeout=5.0):
-                check(time.perf_counter() - t0 < MESH_TIMEOUT_S, f"the gloo world ran past {MESH_TIMEOUT_S} s")
-        finally:
-            for p in ctx.processes:
-                if p.is_alive():
-                    p.kill()
-                p.join(30)
+        spawn_ranks([(mesh_rank, (4, tmp, cfg_fields, dense_capacity, dev.type), 4)], MESH_TIMEOUT_S, "the gloo world")
         out["b_world_s"] = time.perf_counter() - t0
         ranks = []
         for r in range(4):
@@ -1676,6 +1710,140 @@ def tilings_phase(cfg, frame32, dev, t_main: float):
     check(any(rec["stop_0.0001"]["tiles_stopped_early"] > 0 for rec in out["small"].values()),
           "the small sweep exercises the early stop")
     out["elapsed_s"] = time.perf_counter() - t_main  # since main() began, the build included
+    return out, launches
+
+
+def free_port() -> int:
+    """A TCP port on this host that no socket holds now."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def scaling_phase(dev, t_main: float):
+    """Phase 13: the scaling harness (``tools/multihost.py``). Model mode in
+    this process on the headline scene (``NUM_GAUSSIANS``, ``WIDTH x
+    HEIGHT``) at the tile factors of ``SCALING_TP``: every stage time finite
+    and positive, each shard's pairs within its capacity, tp=1's pairs those
+    of the unsharded binning of the same scene and config, and at every tp
+    the strided extraction of the global ``coverage_histogram`` equal to
+    shard (0, 0)'s ``bin_rects`` ``tile_count``. At every tp the kernels on
+    the shard's own inputs, as model mode gives them: the forward bitwise
+    its plain version (colour, T and ``blocks_done``), each of its tiles
+    bitwise that tile (``tile_ids``) of the unsharded render, and the
+    backward's rows (cotangents 0.1 and 0, as model mode's) within
+    ``rows_error`` of the plain version's. Then launch mode at 1x1 in a
+    subprocess under ``torch.distributed.run`` on a free port: exit 0, one
+    forward and one backward launch a step, and its loss within rel 1e-5 of
+    ``Trainer.train_step``'s after as many steps in this process (phase
+    11's tolerance for its 1x1 step). Returns (the phase's record, each
+    kernel's launches over model mode and the launch run)."""
+    import dataclasses
+
+    import torch
+
+    import gsplat_tpu_torch as gs
+    from gsplat_tpu_torch.kernels.raster_bwd import backward_tiles, backward_tiles_plain
+    from gsplat_tpu_torch.kernels.raster_fwd import forward_tiles, forward_tiles_plain
+    from gsplat_tpu_torch.ops.binning import pack_features
+    from gsplat_tpu_torch.render.pipeline import preprocess_traced
+    from gsplat_tpu_torch.render.tile_torch import tiles_to_image
+
+    sys.path.insert(0, os.path.join(HERE, "tools"))
+    import multihost as MH
+
+    t0 = time.perf_counter()
+    model = build_scene(NUM_GAUSSIANS, 0.0, dev)
+    camera = bench_camera(WIDTH, HEIGHT)
+    cfg = MH.harness_config()
+    forward_tiles.launches = backward_tiles.launches = 0
+    rec = MH.model_mode(model, camera, cfg, SCALING_TP, steps=SCALING_STEPS)
+    torch.cuda.synchronize()
+    launches = {"raster_fwd": forward_tiles.launches, "raster_bwd": backward_tiles.launches}
+    check(launches["raster_fwd"] > 0 and launches["raster_bwd"] > 0, f"model mode launches: {launches}")
+    points = rec["points"]
+    check([p["devices"] for p in points] == list(SCALING_TP), f"model mode points: {[p['devices'] for p in points]}")
+    check(sorted(rec["local_count_sec"]) == sorted(str(tp) for tp in SCALING_TP), "the own count timed at every tp")
+    for p in points:
+        for key in (k for k in p if k.endswith("_sec")):
+            check(math.isfinite(p[key]) and p[key] > 0.0, f"tp={p['devices']}: {key} = {p[key]}")
+        check(p["local_pairs"] <= p["local_capacity"], f"tp={p['devices']}: {p['local_pairs']} pairs over capacity")
+    cam = gs.CameraArrays.from_params(camera, device=dev)
+    whole = gs.binning_stats(model, cam, WIDTH, HEIGHT, dataclasses.replace(cfg, max_pairs=points[0]["local_capacity"]))
+    check(points[0]["local_pairs"] == int(whole["num_pairs"]),
+          f"tp=1 pairs {points[0]['local_pairs']} vs the unsharded binning's {int(whole['num_pairs'])}")
+    kernels = {}
+    with torch.inference_mode():
+        img, trans_img = gs.render(model, camera, cfg)
+        prep = preprocess_traced(model, cam, WIDTH, HEIGHT, cfg)
+        feat = pack_features(prep)
+        frame = None  # tp=1's forward: the whole frame's tiles
+        for p in points:
+            tp = p["devices"]
+            s = MH.shard_setup(prep, WIDTH, HEIGHT, cfg, tp)
+            check((s.capacity, int(s.bins.num_pairs)) == (p["local_capacity"], p["local_pairs"]),
+                  f"tp={tp}: the shard's binning repeats")
+            check(torch.equal(s.histogram_tile_count, s.bins.tile_count),
+                  f"tp={tp}: the histogram's strided extraction equals the shard's tile counts")
+            args = (feat, s.bins.pair_gaussian, s.bins.tile_start, s.bins.tile_count, s.tile_ids)
+            k_out = forward_tiles(*args, s.lay.ntx_g, s.cfg, WIDTH, HEIGHT)
+            torch.cuda.synchronize()
+            p_out = forward_tiles_plain(*args, s.lay.ntx_g, s.cfg, WIDTH, HEIGHT)
+            check(all(torch.equal(a, b) for a, b in zip(k_out, p_out)),
+                  f"tp={tp}: the forward (colour, T, blocks_done) bitwise its plain version")
+            if frame is None:
+                check(torch.equal(tiles_to_image(k_out[0], WIDTH, HEIGHT, cfg.tile_size), img)
+                      and torch.equal(tiles_to_image(k_out[1], WIDTH, HEIGHT, cfg.tile_size), trans_img),
+                      "tp=1: the shard's frame is bitwise the unsharded render")
+                frame = k_out[:2]
+            ids = s.tile_ids.long()
+            check(torch.equal(k_out[0], frame[0][ids]) and torch.equal(k_out[1], frame[1][ids]),
+                  f"tp={tp}: each shard tile is bitwise that tile of the whole frame")
+            color, trans, done = k_out
+            outs = (color, trans, torch.full_like(color, 0.1), torch.zeros_like(trans))
+            rows = backward_tiles(*args, *outs, s.lay.ntx_g, s.cfg, done)
+            torch.cuda.synchronize()
+            p_rows = backward_tiles_plain(*args, *outs, s.lay.ntx_g, s.cfg, done)
+            kernels[str(tp)] = {"forward_bitwise": True, "tiles": int(ids.numel()),
+                                "backward": rows_error(rows, p_rows, f"tp={tp} backward rows")}
+            del args, k_out, p_out, color, trans, done, outs, rows, p_rows
+    del model, prep, feat, s, whole, frame, img, trans_img
+    torch.cuda.empty_cache()
+    model_s = time.perf_counter() - t0
+
+    t1 = time.perf_counter()
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node=1", "--master_addr=127.0.0.1",
+           f"--master_port={free_port()}", os.path.join(HERE, "tools", "multihost.py"), "--mode", "launch",
+           "--data", "1", "--tile", "1", "--gaussians", str(NUM_GAUSSIANS), "--width", str(WIDTH),
+           "--height", str(HEIGHT), "--steps", str(SCALING_STEPS), "--device", dev.type]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=SCALING_LAUNCH_TIMEOUT_S, cwd=HERE)
+    check(proc.returncode == 0, f"launch mode exited {proc.returncode}:\n{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    check(len(lines) == 1, f"launch mode prints one JSON line: {proc.stdout[-4000:]}")
+    launch = json.loads(lines[0])
+    check(launch["mode"] == "launch" and launch["devices"] == 1 and math.isfinite(launch["loss"]),
+          f"launch record: {launch}")
+    check(launch["launches"]["raster_fwd"] == SCALING_STEPS + 1 and launch["launches"]["raster_bwd"] == SCALING_STEPS + 1,
+          f"launch mode: one forward and one backward launch a step: {launch['launches']}")
+    launch_s = time.perf_counter() - t1
+    for k in launches:
+        launches[k] += launch["launches"][k]
+    # The single-device reference: Trainer.train_step from the same scene,
+    # config and target, as many steps.
+    ref = build_scene(NUM_GAUSSIANS, 0.0, dev)
+    trainer = gs.Trainer(raster=cfg, train=gs.TrainConfig(ssim_weight=0.2), show_progress=False)
+    state = trainer.init_state(ref)
+    target = torch.full((HEIGHT, WIDTH, 3), 0.25, device=dev)
+    for _ in range(1 + SCALING_STEPS):
+        ref_loss = float(trainer.train_step(ref, state, camera, target)["loss"])
+    check(math.isclose(launch["loss"], ref_loss, rel_tol=1e-5),
+          f"launch mode's loss {launch['loss']} vs Trainer.train_step's {ref_loss} after {1 + SCALING_STEPS} steps")
+    del ref, trainer, state, target
+    torch.cuda.empty_cache()
+    out = {**rec, "kernels_vs_plain": kernels, "launch": launch, "trainer_loss": ref_loss, "model_s": model_s,
+           "launch_s": launch_s, "scaling_launches": launches, "elapsed_s": time.perf_counter() - t_main}
     return out, launches
 
 
@@ -2096,6 +2264,10 @@ def main() -> int:
     tilings, tilings_launches = tilings_phase(cfg, served_frames[0], dev, t_main)
     emit({"phase": "tilings", **tilings})
 
+    # -- phase 13: the scaling harness --
+    scaling, scaling_launches = scaling_phase(dev, t_main)
+    emit({"phase": "scaling", **scaling})
+
     def at_tiles(kernel):
         """A kernel's times and bounds at each tiling of phase 12 (a)."""
         rows = {}
@@ -2113,6 +2285,7 @@ def main() -> int:
             "replaces": "gsplat_tpu/kernels/raster_fwd.py:68", "launches": launches,
             "densify_fit_launches": dense_launches["raster_fwd"], "render_depth_launches": depth_launches,
             "cli_launches": cli_launches["raster_fwd"], "mesh_launches": mesh_launches["raster_fwd"],
+            "scaling_launches": scaling_launches["raster_fwd"],
             "max_abs_err": frame_err, "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None,
             **bound_fields(fwd_bound, kernel_ms),
         },
@@ -2121,7 +2294,7 @@ def main() -> int:
             "tilings": at_tiles("backward"), "source": "gsplat_tpu_torch/csrc/raster_bwd.cu",
             "replaces": "gsplat_tpu/kernels/raster_bwd.py:45", "launches": train_launches["raster_bwd"],
             "densify_fit_launches": dense_launches["raster_bwd"], "cli_launches": cli_launches["raster_bwd"],
-            "mesh_launches": mesh_launches["raster_bwd"],
+            "mesh_launches": mesh_launches["raster_bwd"], "scaling_launches": scaling_launches["raster_bwd"],
             "max_abs_err": frame["rows"]["max_abs_err"], "ms": bwd_ms, "plain_ms": bwd_plain_ms, "library_ms": None,
             **bound_fields(bwd_bound, bwd_ms),
         },

@@ -117,6 +117,64 @@ def strided_tile_ranges(
     return lx0, ly0, torch.where(empty, 0, lnx), torch.where(empty, 0, lny)
 
 
+def coverage_histogram(rects, keep: torch.Tensor, n_tiles_x: int, n_tiles_y: int) -> torch.Tensor:
+    """Per-tile counts of the kept gaussians whose rect ``(tx0, ty0, ntx,
+    nty)`` covers the tile: f32 ``[n_tiles_y, n_tiles_x]``, integer-equal to
+    the JAX package's ``coverage_histogram`` (a bf16 mask product there).
+
+    A 2-D difference array, exact in integers at any count: +1 at a rect's
+    top-left and bottom-right corners and -1 at the other two (by
+    ``index_add_``, clipped to the grid), then a prefix sum along each axis.
+    O(N + tiles), where the mask product is O(N * tiles)."""
+    i32 = torch.int32
+    tx0, ty0, ntx, nty = (r.to(i32) for r in rects)
+    x0, x1 = tx0.clamp(0, n_tiles_x), (tx0 + ntx).clamp(0, n_tiles_x)
+    y0, y1 = ty0.clamp(0, n_tiles_y), (ty0 + nty).clamp(0, n_tiles_y)
+    w = (keep & (x1 > x0) & (y1 > y0)).to(i32)
+    stride = n_tiles_x + 1
+    corners = torch.cat([y0 * stride + x0, y0 * stride + x1, y1 * stride + x0, y1 * stride + x1])
+    diff = torch.zeros((n_tiles_y + 1) * stride, dtype=i32, device=w.device)
+    diff.index_add_(0, corners.long(), torch.cat([w, -w, -w, w]))
+    counts = diff.reshape(n_tiles_y + 1, stride).cumsum(0, dtype=i32).cumsum(1, dtype=i32)
+    return counts[:n_tiles_y, :n_tiles_x].to(torch.float32)
+
+
+def pair_slots(gaussian_counts, num_pairs, rects, n_tiles_x: int, n_tiles_y: int, max_pairs: int):
+    """Step 2 of :func:`bin_rects`: for each of the ``max_pairs`` pair
+    slots, the owning gaussian ``pair_gid`` (the first ``gaussian_counts[g]``
+    slots after the earlier gaussians' belong to gaussian ``g``; the filler
+    segment, id N, covers the slots past ``num_pairs``, so the output size
+    is exact), whether it is a pair (``valid``), the owner clamped to a row
+    (``gid``), and its tile id in the gaussian's rect, row-major (``n_tiles_x
+    * n_tiles_y`` for the filler). int64 throughout."""
+    i64 = torch.int64
+    tx0, ty0, ntx, _ = (r.to(i64) for r in rects)
+    n = gaussian_counts.shape[0]
+    dev = gaussian_counts.device
+    seg_counts = torch.cat([gaussian_counts, (max_pairs - num_pairs).reshape(1)])
+    offsets = torch.cumsum(seg_counts, 0) - seg_counts
+    pair_gid = torch.repeat_interleave(
+        torch.arange(n + 1, device=dev), seg_counts, output_size=max_pairs
+    )
+    valid = pair_gid < n
+    gid = pair_gid.clamp(max=max(n - 1, 0))
+    local = torch.arange(max_pairs, device=dev) - offsets[pair_gid]
+    w = ntx[gid].clamp(min=1)
+    tile_x = tx0[gid] + local % w
+    tile_y = ty0[gid] + local // w
+    tile_id = torch.where(valid, tile_y * n_tiles_x + tile_x, n_tiles_x * n_tiles_y)
+    return pair_gid, valid, gid, tile_id
+
+
+def tile_counts(tile_id: torch.Tensor, num_tiles: int) -> torch.Tensor:
+    """Step 3 of :func:`bin_rects`: each tile's pair count ``[num_tiles]``
+    int64, the bincount of the pair slots' tile ids (the sentinel bin
+    ``num_tiles`` collects the unused slots and is dropped)."""
+    counts = torch.zeros(num_tiles + 1, dtype=torch.int64, device=tile_id.device)
+    counts.index_add_(0, tile_id, torch.ones_like(tile_id))
+    return counts[:num_tiles]
+
+
 def depth_key(depth: torch.Tensor) -> torch.Tensor:
     """Monotone unsigned 32-bit key of f32 depths, as int64 in [0, 2^32)."""
     bits = depth.detach().to(torch.float32).contiguous().view(torch.int32).to(torch.int64) & _DKEY_MAX
@@ -167,27 +225,14 @@ def bin_rects(
     gaussian_counts = torch.where(keep, counts, 0)
     num_pairs = gaussian_counts.sum()
 
-    # 2. Owning gaussian of every pair slot; the filler segment (id N)
-    #    covers the slots past num_pairs, so the output size is exact.
-    seg_counts = torch.cat([gaussian_counts, (max_pairs - num_pairs).reshape(1)])
-    offsets = torch.cumsum(seg_counts, 0) - seg_counts
-    pair_gid = torch.repeat_interleave(
-        torch.arange(n + 1, device=dev), seg_counts, output_size=max_pairs
+    # 2. Owning gaussian and tile of every pair slot.
+    pair_gid, valid, gid, tile_id = pair_slots(
+        gaussian_counts, num_pairs, (tx0, ty0, ntx, nty), n_tiles_x, n_tiles_y, max_pairs
     )
-    valid = pair_gid < n
-    gid = pair_gid.clamp(max=max(n - 1, 0))
-    local = torch.arange(max_pairs, device=dev) - offsets[pair_gid]
-    w = ntx[gid].clamp(min=1)
-    tile_x = tx0[gid] + local % w
-    tile_y = ty0[gid] + local // w
-    tile_id = torch.where(valid, tile_y * n_tiles_x + tile_x, num_tiles)
     pair_dkey = torch.where(valid, dkey[gid], _DKEY_MAX)
 
-    # 3. Per-tile pair counts: bincount of the valid pairs' tile ids (the
-    #    sentinel bin num_tiles collects the unused slots).
-    tile_count = torch.zeros(num_tiles + 1, dtype=i64, device=dev)
-    tile_count.index_add_(0, tile_id, torch.ones_like(tile_id))
-    tile_count = tile_count[:num_tiles]
+    # 3. Per-tile pair counts.
+    tile_count = tile_counts(tile_id, num_tiles)
 
     # 4. Alignment pads: per tile, pad_t sentinel pairs with that tile's key
     #    and the largest depth key, so they sort to the segment's tail.

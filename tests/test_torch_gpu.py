@@ -675,3 +675,19 @@ def test_mesh_step_on_card_matches_one_device(device, tmp_path):
     got = four[0]
     assert got["loss"] == pytest.approx(one["loss"], rel=1e-5)
     np.testing.assert_allclose(got["params"]["means"], one["params"]["means"], rtol=1e-4, atol=1e-7)
+
+
+def test_coverage_histogram_on_card_matches_cpu(device):
+    """``coverage_histogram`` adds integers (``index_add_`` of +-1 at rect
+    corners, then prefix sums), so the card's counts equal the CPU's, here
+    at the headline's 60x34 grid with counts in the thousands."""
+    gen = torch.Generator().manual_seed(3)
+    n, nx, ny = 20000, 60, 34
+    tx0, ty0 = torch.randint(0, nx, (n,), generator=gen), torch.randint(0, ny, (n,), generator=gen)
+    rects = (tx0, ty0, torch.randint(0, 40, (n,), generator=gen).clamp(max=nx - tx0),
+             torch.randint(0, 30, (n,), generator=gen).clamp(max=ny - ty0))
+    keep = torch.rand(n, generator=gen) < 0.8
+    want = binning.coverage_histogram(rects, keep, nx, ny)
+    got = binning.coverage_histogram(tuple(r.to(device) for r in rects), keep.to(device), nx, ny)
+    assert got.device.type == "cuda" and want.max() > 1000
+    assert torch.equal(got.cpu(), want)

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+import chip_smoke
 import gsplat_tpu_torch as tgs
 from gsplat_tpu_torch.parallel import (
     ParallelTrainer,
@@ -48,20 +49,8 @@ def spawn_world(fn, world_size: int, tmp_dir, *args, timeout: float = 240.0, dev
     tmp_dir = str(tmp_dir)
     os.makedirs(tmp_dir, exist_ok=True)
     store = os.path.join(tmp_dir, f"store-{fn.__name__}-{time.monotonic_ns()}")
-    ctx = torch.multiprocessing.start_processes(
-        _rank_main, args=(fn, world_size, store, tmp_dir, device, args), nprocs=world_size, join=False,
-        start_method="spawn",
-    )
-    deadline = time.monotonic() + timeout
-    try:
-        while not ctx.join(timeout=1.0):
-            if time.monotonic() > deadline:
-                raise TimeoutError(f"{fn.__name__} on {world_size} ranks ran past {timeout} s")
-    finally:
-        for p in ctx.processes:
-            if p.is_alive():
-                p.terminate()
-            p.join(10)
+    chip_smoke.spawn_ranks([(_rank_main, (fn, world_size, store, tmp_dir, device, args), world_size)], timeout,
+                           f"{fn.__name__} on {world_size} ranks")
     return [torch.load(os.path.join(tmp_dir, f"{fn.__name__}-rank{r}.pt"), weights_only=False)
             for r in range(world_size)]
 
