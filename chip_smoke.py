@@ -4,7 +4,7 @@
 Usage: ``python3 chip_smoke.py`` from the repository root, on a machine with
 one NVIDIA H100 (or another sm_90a card) and the CUDA toolkit. It builds the
 port's CUDA kernels from ``gsplat_tpu_torch/csrc`` (into ``build/kernels``),
-then runs thirteen phases, each printing one JSON line:
+then runs fourteen phases, each printing one JSON line:
 
   1. device: the card's name and power limit, torch/CUDA versions, kernel
      build time, the compiler's register report and each kernel's
@@ -117,6 +117,20 @@ then runs thirteen phases, each printing one JSON line:
      under ``torch.distributed.run`` in a subprocess (exit 0, one forward
      and one backward launch a step, its loss within rel 1e-5 of as many
      ``Trainer.train_step`` calls in this process).
+ 14. bench: the benchmark script (``bench_phase``, ``tools/bench_torch.py``).
+     (a) ``synthetic_bench`` in this process at its full sizes, ``ITERS``
+     and budget: every line JSON, no extra skipped or in error, every fps
+     positive, the headline's capacity and pairs per gaussian phase 3's,
+     the real-density demand phase 8's, the headline loss within rel 1e-6
+     of a step taken here on a fresh scene, and each kernel's launches over
+     the call the plan's (the forward and backward: warm-up plus timed
+     steps at each unsliced point; both carry kernels: phase 8's ``k_exec``
+     per sliced step); then, at 4K, the densest sweep point and the
+     real-density scene unsliced (exact mode and early stop 1e-4), the
+     forward kernel bitwise its plain version and the backward's rows
+     within ``rows_error`` of its plain version's, on the binned inputs
+     of each point as the bench sized it. (b) ``tools/bench_torch.py
+     --selftest`` as a command: exit 0, ``ok``, the image error 0.0.
 
 A kernel's bound counts the work its inputs need. ``bound_ms`` charges the
 gate (and its expf) only at the walked pair-pixels inside each pair's
@@ -135,9 +149,9 @@ through its own helpers and ``gsplat_tpu_torch/utils/video.py`` and does not
 invoke it.
 
 It then prints ``nvidia-smi``'s name/power-limit line, the ``kernels`` JSON
-line (each kernel's launches on the main path and in phases 9, 10, 11, 12
-and 13, phase 11's summed over every rank and phase 13's over model mode and
-the launch run, and its times and bounds at phase 12's tilings) and,
+line (each kernel's launches on the main path and in phases 9, 10, 11, 12,
+13 and 14, phase 11's summed over every rank and phase 13's over model mode
+and the launch run, and its times and bounds at phase 12's tilings) and,
 last, ``{"ok": true, "device": {...}}``. Any failed check raises,
 so the script exits non-zero and prints no result; it also refuses to run
 without a CUDA device or without the ``gsplat_tpu_torch`` package beside it.
@@ -237,6 +251,12 @@ TILING_SMALL_BLOCKS = (8, 128, 2048)
 SCALING_TP = (1, 2, 4, 8)
 SCALING_STEPS = 8
 SCALING_LAUNCH_TIMEOUT_S = 300
+# The benchmark script (phase 14): its selftest command's time limit, and
+# the most tiles a plain version walks at once where phase 14 holds the
+# kernels to them (a 4K frame's 8160 tiles at once would hold tens of GB of
+# [tiles, chunk, pixels] temporaries; a 1080p frame's 2040 are one group).
+BENCH_SELFTEST_TIMEOUT_S = 300
+BENCH_PLAIN_TILES = 2048
 
 
 def emit(obj) -> None:
@@ -1847,6 +1867,205 @@ def scaling_phase(dev, t_main: float):
     return out, launches
 
 
+def json_fields(obj):
+    """(key, value) of every field of a JSON record, nested ones included."""
+    if isinstance(obj, dict):
+        for key, value in obj.items():
+            yield key, value
+            yield from json_fields(value)
+    elif isinstance(obj, list):
+        for value in obj:
+            yield from json_fields(value)
+
+
+def kernels_vs_plain(model, camera, cfg, seed: int, what: str) -> dict:
+    """The forward and backward kernels on one view's binned inputs (as the
+    unsliced render bins them) against their plain versions: the forward's
+    colour, T and ``blocks_done`` bitwise, the backward's rows (seeded
+    cotangents, the forward's ``blocks_done``) within :func:`rows_error`.
+    The plain versions walk ``BENCH_PLAIN_TILES`` tiles at a time; a slot
+    belongs to one tile, so the groups' rows add up to the whole walk's.
+    Returns the pairs, the pair-pixels walked and the errors."""
+    import torch
+
+    from gsplat_tpu_torch.kernels.raster_bwd import backward_tiles, backward_tiles_plain
+    from gsplat_tpu_torch.kernels.raster_fwd import forward_tiles, forward_tiles_plain
+
+    w, h = camera.width, camera.height
+    args, bins, ntx = binned_inputs(model, camera, cfg)
+    feat, pair_gaussian, tile_start, tile_count, tile_ids = args
+    groups = [slice(i, i + BENCH_PLAIN_TILES) for i in range(0, len(tile_ids), BENCH_PLAIN_TILES)]
+
+    def tiles(g):
+        return tile_start[g], tile_count[g], tile_ids[g]
+
+    k_out = forward_tiles(*args, ntx, cfg, w, h)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    parts = [forward_tiles_plain(feat, pair_gaussian, *tiles(g), ntx, cfg, w, h) for g in groups]
+    p_out = [torch.cat(x) for x in zip(*parts)]
+    check(all(torch.equal(a, b) for a, b in zip(k_out, p_out)),
+          f"{what}: the forward (colour, T, blocks_done) bitwise its plain version")
+    plain_fwd_s = time.perf_counter() - t0
+    color, trans, done = k_out
+    del parts, p_out
+    g_color, g_trans = random_cotangents(color, trans, seed=seed)
+    rows = backward_tiles(*args, color, trans, g_color, g_trans, ntx, cfg, done)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p_rows = None
+    for g in groups:
+        part = backward_tiles_plain(feat, pair_gaussian, *tiles(g), color[g], trans[g], g_color[g], g_trans[g],
+                                    ntx, cfg, done[g])
+        p_rows = part if p_rows is None else p_rows.add_(part)
+        del part
+    bwd = rows_error(rows, p_rows, f"{what}: backward rows")
+    walked = torch.minimum(tile_count.long(), done.long() * cfg.pair_block)
+    return {"width": w, "height": h, "tiles": len(tile_ids), "pairs": int(bins.num_pairs),
+            "pair_slots": cfg.max_pairs, "early_stop": cfg.early_stop_transmittance, "blocks_done": int(done.sum()),
+            "walked_pair_pixels": int(walked.sum()) * cfg.tile_size ** 2, "forward_bitwise": True, "backward": bwd,
+            "plain_forward_s": plain_fwd_s, "plain_backward_s": time.perf_counter() - t0}
+
+
+def bench_phase(dev, t_main: float, capacity: int, demand: int, real_demand: int, real_k_exec: int):
+    """Phase 14: the benchmark script (``tools/bench_torch.py``).
+
+    (a) ``synthetic_bench`` in this process at its full sizes, ``ITERS``
+    and budget, its stdout captured: every line JSON with the headline's
+    value, no extra skipped, no ``error`` field anywhere, every fps positive
+    and the loss finite; the headline's capacity and pairs per gaussian
+    those phase 3 measured (``capacity``, ``demand``: the same scene and
+    sizing), the real-density demand phase 8's (``real_demand``); the
+    headline loss within rel 1e-6 of a step (render, ``rgb_loss``,
+    gradients) taken here on a fresh scene at the headline config (cuDNN
+    may choose other convolution algorithms in another call, so not
+    bitwise); each kernel's launches over the call the plan's: forward and
+    backward one a step (the warm-up and ``ITERS[i]``) at each unsliced
+    point, both carry kernels ``real_k_exec`` (phase 8's slices at the
+    bench pose and settings) a sliced step. Then the forward and backward
+    kernels against their plain versions (:func:`kernels_vs_plain`) at the
+    bench's points that no earlier phase reaches, each sized as the bench
+    sized it (its capacity or demand checked against the bench's record):
+    4K, the last sweep point (the densest), and the real-density scene
+    unsliced in exact mode (every one of its 40M pairs walked) and with
+    early stop 1e-4 (the single-sort step's). (b) ``tools/bench_torch.py
+    --selftest`` as a command: exit 0, ``ok`` and an image error of 0.0
+    (the forward is bitwise its plain version). Returns (the phase's
+    record, each kernel's launches over (a))."""
+    import contextlib
+    import io
+
+    import torch
+
+    import gsplat_tpu_torch as gs
+    from gsplat_tpu_torch.kernels.raster_bwd import backward_tiles, backward_tiles_carry
+    from gsplat_tpu_torch.kernels.raster_fwd import forward_tiles, forward_tiles_carry
+
+    sys.path.insert(0, os.path.join(HERE, "tools"))
+    import bench_torch as BT
+
+    t0 = time.perf_counter()
+    counted = {"raster_fwd": forward_tiles, "raster_bwd": backward_tiles, "raster_fwd_carry": forward_tiles_carry,
+               "raster_bwd_carry": backward_tiles_carry}
+    torch.cuda.synchronize()
+    for wrapper in counted.values():
+        wrapper.launches = 0
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        result = BT.synthetic_bench(quick=False, device=dev.type)
+    torch.cuda.synchronize()
+    launches = {name: wrapper.launches for name, wrapper in counted.items()}
+    bench_s = time.perf_counter() - t0
+    lines = []
+    for line in out.getvalue().splitlines():
+        try:
+            lines.append(json.loads(line))
+        except json.JSONDecodeError:
+            check(False, f"bench line is JSON: {line!r}")
+    check(len(lines) >= 2 and all(line["value"] == result["value"] for line in lines),
+          f"every bench line carries the headline value: {[line['value'] for line in lines]}")
+    extra = result["extra"]
+    check(extra["budget"]["skipped"] == [], f"no bench extra skipped: {extra['budget']}")
+    errors = [(k, v) for k, v in json_fields(result) if k in ("error", "message")]
+    check(not errors, f"no bench extra in error: {errors}")
+    real, sweep = extra["real_density"], extra["pair_sweep"]
+    fps = [result["value"], real["fps"], real["exact_mode_fps"], real["single_sort_fps"], extra["res_4k"]["fps"],
+           *(p["fps"] for p in sweep), extra["early_stop_fps"]]
+    check(len(sweep) == len(BT.PAIR_SWEEP_SHIFTS) and all(v > 0 for v in fps), f"every fps positive: {fps}")
+    check(math.isfinite(extra["loss"]), f"finite headline loss: {extra['loss']}")
+    check(extra["max_pairs"] == capacity and extra["pairs_per_gaussian"] == round(demand / BT.NUM_GAUSSIANS, 2),
+          f"headline capacity and pairs per gaussian {extra['max_pairs']}, {extra['pairs_per_gaussian']} "
+          f"are phase 3's {capacity}, {round(demand / BT.NUM_GAUSSIANS, 2)}")
+    check(real["pair_demand"] == real_demand, f"real-density demand {real['pair_demand']} is phase 8's {real_demand}")
+    it = BT.ITERS
+    unsliced = 2 * (1 + it[0]) + 2 * (1 + it[2]) + (1 + it[3]) + len(BT.PAIR_SWEEP_SHIFTS) * (1 + it[1])
+    sliced = (1 + it[2]) * real_k_exec
+    plan = {"raster_fwd": unsliced, "raster_bwd": unsliced, "raster_fwd_carry": sliced, "raster_bwd_carry": sliced}
+    check(launches == plan, f"bench launches {launches} are the plan's {plan}")
+
+    model = build_scene(BT.NUM_GAUSSIANS, 0.0, dev)
+    cam = gs.CameraArrays.from_params(bench_camera(BT.WIDTH, BT.HEIGHT), device=dev)
+    target = torch.full((BT.HEIGHT, BT.WIDTH, 3), 0.25, device=dev)
+    loss = gs.rgb_loss(gs.render_traced(model, cam, BT.WIDTH, BT.HEIGHT, BT.make_cfg(capacity, 0.0))[0], target, 0.2)
+    torch.autograd.grad(loss, list(model.parameters()))
+    step_loss = float(loss.detach())
+    check(math.isclose(extra["loss"], step_loss, rel_tol=1e-6),
+          f"bench headline loss {extra['loss']} vs a step here {step_loss}")
+    del cam, target, loss
+
+    # The kernels against their plain versions at the bench's points that
+    # no earlier phase reaches, sized as the bench sized them.
+    t_plain = time.perf_counter()
+    k4, (w4, h4) = {}, BT.RES_4K
+    with torch.inference_mode():
+        cam4 = bench_camera(w4, h4)
+        cap4, dem4 = BT.sized_capacity(model, gs.CameraArrays.from_params(cam4, device=dev), width=w4, height=h4)
+        check(dem4 == extra["res_4k"]["pair_demand"], f"4K demand {dem4} is the bench's")
+        k4["res_4k"] = kernels_vs_plain(model, cam4, BT.make_cfg(cap4, 0.0), 41, "bench 4K")
+        del model
+        shift, point = BT.PAIR_SWEEP_SHIFTS[-1], sweep[-1]
+        model = build_scene(BT.NUM_GAUSSIANS, shift, dev)
+        camera = bench_camera(BT.WIDTH, BT.HEIGHT)
+        cam = gs.CameraArrays.from_params(camera, device=dev)
+        cap, _ = BT.sized_capacity(model, cam)
+        check(cap == point["max_pairs"], f"sweep[{shift}] capacity {cap} is the bench's {point['max_pairs']}")
+        k4[f"pair_sweep[{shift}]"] = kernels_vs_plain(model, camera, BT.make_cfg(cap, 1e-4), 42,
+                                                      f"bench sweep[{shift}]")
+        del model
+        model = build_scene(BT.REAL_DENSITY_N, BT.REAL_DENSITY_SHIFT, dev)
+        cap, dem = BT.sized_capacity(model, cam, headroom=1.1)
+        check((cap, dem) == (real["max_pairs"], real["pair_demand"]), "the real-density capacity is the bench's")
+        k4["real_density_exact"] = kernels_vs_plain(model, camera, BT.make_cfg(cap, 0.0), 43,
+                                                    "bench real density, exact mode")
+        # The single-sort step: early stop 1e-4 (``reduce_pairs`` shapes the
+        # reduction after the backward kernel, not the kernel's inputs).
+        k4["real_density_single_sort"] = kernels_vs_plain(
+            model, camera, BT.make_cfg(cap, 1e-4, reduce_pairs=cap // 4), 44, "bench real density, single sort")
+        del model, cam
+    torch.cuda.empty_cache()  # the selftest's process needs the card's memory
+    kernels_s = time.perf_counter() - t_plain
+
+    t1 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.join(HERE, "tools", "bench_torch.py"), "--selftest"],
+                          capture_output=True, text=True, timeout=BENCH_SELFTEST_TIMEOUT_S, cwd=HERE)
+    check(proc.returncode == 0, f"--selftest exited {proc.returncode}:\n{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    selftest = json.loads([ln for ln in proc.stdout.splitlines() if ln.startswith("{")][-1])
+    check(selftest["extra"]["ok"] is True and selftest["extra"]["max_abs_err_image"] == 0.0,
+          f"selftest: {selftest}")
+    selftest_s = time.perf_counter() - t1
+    rec = {
+        "headline_fps": result["value"], "headline_sec_per_frame": extra["sec_per_frame"],
+        "real_density_fps": real["fps"], "real_density_exact_mode_fps": real["exact_mode_fps"],
+        "real_density_single_sort_fps": real["single_sort_fps"], "res_4k_fps": extra["res_4k"]["fps"],
+        "pair_sweep": [{"pairs_per_gaussian": p["pairs_per_gaussian"], "fps": p["fps"]} for p in sweep],
+        "early_stop_fps": extra["early_stop_fps"], "headline_loss": extra["loss"], "step_loss_here": step_loss,
+        "bench_launches": launches, "kernels_vs_plain": k4, "selftest": selftest["extra"], "bench_s": bench_s,
+        "kernels_s": kernels_s, "selftest_s": selftest_s,
+        "phase_s": time.perf_counter() - t0, "elapsed_s": time.perf_counter() - t_main, "last_line": result,
+    }
+    return rec, launches
+
+
 def main() -> int:
     t_main = time.perf_counter()
     import torch
@@ -1981,6 +2200,7 @@ def main() -> int:
         "within_1e-4": within_1e4, "within_5e-3": within_5e3, "max_abs_err": frame_err,
     })
     served_frames = frames  # phase 11's reference
+    head_demand = demand  # phase 14's reference
 
     # -- phase 4: kernel timing and bound at the phase-3 shapes --
     with torch.inference_mode():
@@ -2268,6 +2488,10 @@ def main() -> int:
     scaling, scaling_launches = scaling_phase(dev, t_main)
     emit({"phase": "scaling", **scaling})
 
+    # -- phase 14: the benchmark script --
+    bench, bench_launches = bench_phase(dev, t_main, capacity, head_demand, real["pair_demand"], real["k_exec"])
+    emit({"phase": "bench", **bench})
+
     def at_tiles(kernel):
         """A kernel's times and bounds at each tiling of phase 12 (a)."""
         rows = {}
@@ -2281,6 +2505,7 @@ def main() -> int:
     emit({"kernels": [
         {
             "name": "raster_fwd", "route": "cuda", "tilings_launches": tilings_launches["raster_fwd"],
+            "bench_launches": bench_launches["raster_fwd"],
             "tilings": at_tiles("forward"), "source": "gsplat_tpu_torch/csrc/raster_fwd.cu",
             "replaces": "gsplat_tpu/kernels/raster_fwd.py:68", "launches": launches,
             "densify_fit_launches": dense_launches["raster_fwd"], "render_depth_launches": depth_launches,
@@ -2291,6 +2516,7 @@ def main() -> int:
         },
         {
             "name": "raster_bwd", "route": "cuda", "tilings_launches": tilings_launches["raster_bwd"],
+            "bench_launches": bench_launches["raster_bwd"],
             "tilings": at_tiles("backward"), "source": "gsplat_tpu_torch/csrc/raster_bwd.cu",
             "replaces": "gsplat_tpu/kernels/raster_bwd.py:45", "launches": train_launches["raster_bwd"],
             "densify_fit_launches": dense_launches["raster_bwd"], "cli_launches": cli_launches["raster_bwd"],
@@ -2300,6 +2526,7 @@ def main() -> int:
         },
         {
             "name": "raster_fwd_carry", "route": "cuda", "tilings_launches": tilings_launches["raster_fwd_carry"],
+            "bench_launches": bench_launches["raster_fwd_carry"],
             "tilings": at_tiles("forward_carry"), "source": "gsplat_tpu_torch/csrc/raster_fwd.cu",
             "replaces": "gsplat_tpu/kernels/raster_fwd.py:266", "launches": fwd_carry_launches,
             "cli_launches": cli_launches["raster_fwd_carry"],
@@ -2309,6 +2536,7 @@ def main() -> int:
         },
         {
             "name": "raster_bwd_carry", "route": "cuda", "tilings_launches": tilings_launches["raster_bwd_carry"],
+            "bench_launches": bench_launches["raster_bwd_carry"],
             "tilings": at_tiles("backward_carry"), "source": "gsplat_tpu_torch/csrc/raster_bwd.cu",
             "replaces": "gsplat_tpu/kernels/raster_bwd.py:339", "launches": real_launches["raster_bwd_carry"],
             "cli_launches": cli_launches["raster_bwd_carry"],

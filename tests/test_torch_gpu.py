@@ -691,3 +691,32 @@ def test_coverage_histogram_on_card_matches_cpu(device):
     got = binning.coverage_histogram(tuple(r.to(device) for r in rects), keep.to(device), nx, ny)
     assert got.device.type == "cuda" and want.max() > 1000
     assert torch.equal(got.cpu(), want)
+
+
+def test_bench_step_on_card_matches_cpu(device):
+    """``tools/bench_torch.py``'s timed step (render, ``rgb_loss`` with SSIM
+    weight 0.2, gradients to the five parameters; a warm-up and one timed
+    step) on ``chip_smoke.py``'s 20K-gaussian small scene at 256x192, drawn
+    on the CPU: the card's final loss within rel 1e-5 of the CPU's, in exact
+    mode and with early stop 1e-4, one forward launch a step on the card."""
+    import sys
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tools"))
+    import bench_torch
+    import chip_smoke
+
+    arrays = chip_smoke.build_scene(20_000, 2.5, "cpu").to_arrays()
+    camera = chip_smoke.bench_camera(256, 192)
+    losses = {}
+    for dev in ("cpu", "cuda"):
+        model = tgs.GaussianModel.from_arrays(arrays, device=dev)
+        cam = tgs.CameraArrays.from_params(camera, device=dev)
+        target = torch.zeros((192, 256, 3), device=dev) + 0.25
+        cap, _ = bench_torch.sized_capacity(model, cam, width=256, height=192)
+        for stop in (0.0, 1e-4):
+            before = forward_tiles.launches
+            cfg = bench_torch.make_cfg(cap, stop)
+            losses[dev, stop] = bench_torch.time_fwd_bwd(model, cam, target, cfg, iters=1)[1]
+            assert forward_tiles.launches - before == (2 if dev == "cuda" else 0)
+    for stop in (0.0, 1e-4):
+        assert losses["cuda", stop] == pytest.approx(losses["cpu", stop], rel=1e-5), (stop, losses)

@@ -10,8 +10,9 @@ alternating which side runs first (parent, change, change, parent, ...), so
 drift of the card or its host falls on both sides alike. Every run must
 exit 0; its output is kept under ``--out`` when given. It prints one JSON
 line: for each metric below, each side's runs, median and quartiles, the
-share of pairs the change wins (lower is better), and the card's name and
-power limit.
+share of pairs the change wins (lower is better for times, higher for the
+``_fps`` metrics: frames/s of ``tools/bench_torch.py``'s step, phase 14), and
+the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -37,10 +38,13 @@ METRICS = {
     "real_single_sort_step_ms": ("real_density", "single_sort_step", "step_ms"),
     "raster_fwd_carry_ms": ("real_density", "forward_carry_ms"),
     "raster_bwd_carry_ms": ("real_density", "backward_carry_ms"),
+    "bench_headline_fps": ("bench", "headline_fps"),
+    "bench_real_sliced_fps": ("bench", "real_density_fps"),
+    "bench_real_single_sort_fps": ("bench", "real_density_single_sort_fps"),
 }
 
 
-def run(checkout: str, out_path):
+def run(checkout: str, out_path, missing_ok: bool):
     proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=checkout, capture_output=True, text=True,
                           timeout=1200)
     if out_path:
@@ -55,9 +59,11 @@ def run(checkout: str, out_path):
             phases[obj["phase"]] = obj
     values = {}
     for name, (phase, *keys) in METRICS.items():
-        v = phases[phase]
+        if phase not in phases and not missing_ok:
+            raise RuntimeError(f"chip_smoke.py in {checkout} printed no {phase!r} phase")
+        v = phases.get(phase)  # None where an older parent's script lacks the phase
         for k in keys:
-            v = v[k]
+            v = None if v is None else v[k]
         values[name] = v
     smi = [ln for ln in proc.stdout.splitlines() if not ln.startswith("{")]
     return values, smi[-1] if smi else None
@@ -83,7 +89,7 @@ def main() -> int:
         order = ("parent", "change") if i % 2 == 0 else ("change", "parent")
         for side in order:
             path = os.path.join(opts.out, f"{i:02d}_{side}.txt") if opts.out else None
-            values, smi = run(getattr(opts, side), path)
+            values, smi = run(getattr(opts, side), path, missing_ok=side == "parent")
             runs[side].append(values)
     report = {"pairs": opts.pairs, "nvidia_smi": smi, "metrics": {}}
     for name in METRICS:
@@ -95,7 +101,7 @@ def main() -> int:
             continue
         report["metrics"][name] = {
             "parent": p, "change": c, "parent_stats": quartiles(p), "change_stats": quartiles(c),
-            "change_wins": sum(cv < pv for pv, cv in zip(p, c)) / len(p),
+            "change_wins": sum((cv > pv) if name.endswith("_fps") else (cv < pv) for pv, cv in zip(p, c)) / len(p),
         }
     print(json.dumps(report), flush=True)
     return 0
