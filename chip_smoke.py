@@ -4,7 +4,7 @@
 Usage: ``python3 chip_smoke.py`` from the repository root, on a machine with
 one NVIDIA H100 (or another sm_90a card) and the CUDA toolkit. It builds the
 port's CUDA kernels from ``gsplat_tpu_torch/csrc`` (into ``build/kernels``),
-then runs fourteen phases, each printing one JSON line:
+then runs fifteen phases, each printing one JSON line:
 
   1. device: the card's name and power limit, torch/CUDA versions, kernel
      build time, the compiler's register report and each kernel's
@@ -131,6 +131,21 @@ then runs fourteen phases, each printing one JSON line:
      within ``rows_error`` of its plain version's, on the binned inputs
      of each point as the bench sized it. (b) ``tools/bench_torch.py
      --selftest`` as a command: exit 0, ``ok``, the image error 0.0.
+ 15. probes: the TPU probes' counterparts (``probes_phase``): the three
+     tools ``tools/probe_transpose.py``, ``tools/probe_lane_dma.py`` and
+     ``tools/orientation_test.py`` in this process at full size, every line
+     JSON and every check of theirs holding on this card: the transposes,
+     the bulk-copy slabs, both tensor-core modes and the TMA lane copy
+     bitwise their plain versions, and all but one-pass TF32 bitwise the
+     TPU probes' expectation; both orientation kernels at 268M pair-pixels
+     within rtol 1e-5 of their plain versions, zero at the TPU probe's
+     inputs, and at the sparse set (one passed pair a pixel a chunk, T
+     above zero to the end) T bitwise theirs; each probe kernel's launches
+     the tools' plan. Then the orientation kernels at 2 chunks
+     (``probe_checks``): exactly zero at t0 = 0 and within rtol 1e-5 of
+     their plain versions at t0 = 1. Their times (orientation: ms and ns a
+     pair-pixel at each feature set beside the one-SM bounds) go to the
+     ``kernels`` line.
 
 A kernel's bound counts the work its inputs need. ``bound_ms`` charges the
 gate (and its expf) only at the walked pair-pixels inside each pair's
@@ -149,9 +164,10 @@ through its own helpers and ``gsplat_tpu_torch/utils/video.py`` and does not
 invoke it.
 
 It then prints ``nvidia-smi``'s name/power-limit line, the ``kernels`` JSON
-line (each kernel's launches on the main path and in phases 9, 10, 11, 12,
-13 and 14, phase 11's summed over every rank and phase 13's over model mode
-and the launch run, and its times and bounds at phase 12's tilings) and,
+line (each compositor's launches on the main path and in phases 9, 10, 11,
+12, 13 and 14, phase 11's summed over every rank and phase 13's over model
+mode and the launch run, and its times and bounds at phase 12's tilings;
+then each probe kernel's launches, times and bounds from phase 15) and,
 last, ``{"ok": true, "device": {...}}``. Any failed check raises,
 so the script exits non-zero and prints no result; it also refuses to run
 without a CUDA device or without the ``gsplat_tpu_torch`` package beside it.
@@ -368,10 +384,13 @@ def binned_inputs(model, camera, cfg):
     return args, bins, n_tiles_x
 
 
-def cuda_ms(fn, runs: int):
-    """Median milliseconds of ``fn()`` over ``runs`` calls, CUDA events."""
+def cuda_ms(fn, runs: int, warmup: int = 0):
+    """Median milliseconds of ``fn()`` over ``runs`` calls after ``warmup``
+    untimed ones, CUDA events."""
     import torch
 
+    for _ in range(warmup):
+        fn()
     times = []
     for _ in range(runs):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -397,6 +416,31 @@ def device_busy_ms(fn):
         if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
     )
     return busy_us / 1e3 if busy_us > 0 else None
+
+
+def graph_ms(fn, runs: int, warmup: int = 0):
+    """Device milliseconds of one ``fn()``, for calls whose host work
+    outlasts their device work (CUDA events around one call would time the
+    host): after ``warmup`` calls, ``runs`` calls are captured in one CUDA
+    graph, which is replayed once untimed (the first replay uploads it) and
+    once between two CUDA events; the time over ``runs``. A wrapper counts
+    a captured call's launch once."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        for _ in range(runs):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / runs
 
 
 def host_syncs(fn) -> int:
@@ -2066,6 +2110,157 @@ def bench_phase(dev, t_main: float, capacity: int, demand: int, real_demand: int
     return rec, launches
 
 
+# Phase 15: the TPU probes' kernels (kernels/probes.py), each with the
+# function of ``scripts/`` it replaces (file:line of its Pallas body).
+PROBE_KERNELS = {
+    "transpose_smem": ("gsplat_tpu_torch/csrc/probe_transpose.cu", "scripts/probe_transpose.py:19"),
+    "transpose_mma": ("gsplat_tpu_torch/csrc/probe_transpose.cu", "scripts/probe_transpose.py:27"),
+    "transpose_block_async": ("gsplat_tpu_torch/csrc/probe_transpose.cu", "scripts/probe_transpose.py:38"),
+    "lane_dma": ("gsplat_tpu_torch/csrc/probe_lane_dma.cu", "scripts/probe_lane_dma.py:11"),
+    "orientation_a": ("gsplat_tpu_torch/csrc/probe_orientation.cu", "scripts/orientation_test.py:32"),
+    "orientation_b": ("gsplat_tpu_torch/csrc/probe_orientation.cu", "scripts/orientation_test.py:69"),
+}
+PROBE_CHECK_REPS = 2  # chunks at which phase 15 holds the orientation kernels to their plain versions
+PROBE_RTOL, PROBE_ATOL = 1e-5, 1e-6  # the card's expf against PyTorch's exp
+
+
+def probe_checks(dev) -> dict:
+    """The orientation kernels against their plain versions on the card at
+    ``PROBE_CHECK_REPS`` chunks, at the TPU probe's inputs and the passing
+    set: exactly zero at ``t0 = 0``, within rtol 1e-5 / atol 1e-6 of theirs
+    at ``t0 = 1``. Returns each kernel's largest absolute error."""
+    import torch
+
+    from gsplat_tpu_torch.kernels import probes as P
+
+    sys.path.insert(0, os.path.join(HERE, "tools"))
+    import orientation_test as OT
+
+    errs = {}
+    for name, wrapper, plain in (("orientation_a", P.orientation_a, P.orientation_a_plain),
+                                 ("orientation_b", P.orientation_b, P.orientation_b_plain)):
+        orientation = name[-1]
+        for features in ("jax", "passing"):
+            feat = torch.from_numpy(OT.features_block(orientation, features)).to(dev)
+            check(bool((wrapper(feat, PROBE_CHECK_REPS, 0.0) == 0).all()), f"{name} at t0 = 0 is zero ({features})")
+            got, want = wrapper(feat, PROBE_CHECK_REPS, 1.0), plain(feat, PROBE_CHECK_REPS, 1.0)
+            check(bool(torch.allclose(got, want, rtol=PROBE_RTOL, atol=PROBE_ATOL)),
+                  f"{name} at t0 = 1 within rtol 1e-5 of its plain version ({features}): "
+                  f"max abs err {(got - want).abs().max().item()}")
+            errs[name] = max(errs.get(name, 0.0), (got - want).abs().max().item())
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return errs
+
+
+def probes_phase(dev, t_main: float):
+    """Phase 15: the TPU probes' counterparts (``tools/probe_transpose.py``,
+    ``tools/probe_lane_dma.py``, ``tools/orientation_test.py``) run in this
+    process as a user runs them (``main``, at full size, on ``dev``), their
+    output captured: every line JSON, every check of theirs holding, each
+    on this card (a positive time and the card's ``nvidia-smi`` line), and
+    each probe kernel's launches over the three the tools' plan (one
+    checked launch a probe, and on the card its timed ones). Then
+    :func:`probe_checks` holds the orientation kernels to their plain
+    versions at 2 chunks. Returns (the phase's record, the ``kernels``
+    line's rows of the six kernels)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from gsplat_tpu_torch.kernels import probes as P
+
+    sys.path.insert(0, os.path.join(HERE, "tools"))
+    import orientation_test as OT
+    import probe_lane_dma as PLD
+    import probe_transpose as PT
+
+    t0 = time.perf_counter()
+    wrappers = {name: getattr(P, name) for name in PROBE_KERNELS}
+    torch.cuda.synchronize()
+    for wrapper in wrappers.values():
+        wrapper.launches = 0
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        flags = ["--device", dev.type]
+        rcs = {"probe_transpose": PT.main(flags), "probe_lane_dma": PLD.main(flags), "orientation_test": OT.main(flags)}
+    torch.cuda.synchronize()
+    launches = {name: wrapper.launches for name, wrapper in wrappers.items()}
+    tools_s = time.perf_counter() - t0
+    records = []
+    for line in out.getvalue().splitlines():
+        try:
+            records.append(json.loads(line))
+        except json.JSONDecodeError:
+            check(False, f"probe line is JSON: {line!r}")
+    check(rcs == {name: 0 for name in rcs}, f"every probe tool exits 0: {rcs}")
+    on_card = dev.type == "cuda"
+    smi = nvidia_smi_line() if on_card else None
+    for rec in records:
+        check(rec["ok"] and rec["device"] == dev.type and rec["nvidia_smi"] == smi and (not on_card or rec["ms"] > 0),
+              f"probe {rec['probe']} ({rec.get('features', rec.get('mode', ''))}) holds on this card: {rec}")
+    per_t, per_o = 1 + on_card * (PT.WARMUP + PT.ITERS), len(OT.FEATURE_SETS) * (1 + on_card * (OT.WARMUP + OT.ITERS))
+    planned = {"transpose_smem": 2 * per_t, "transpose_mma": 2 * per_t, "transpose_block_async": per_t,
+               "lane_dma": 1 + on_card * (PLD.WARMUP + PLD.ITERS), "orientation_a": per_o, "orientation_b": per_o}
+    check(launches == planned, f"probe kernel launches {launches} are the tools' plan {planned}")
+    by = {}
+    for rec in records:
+        by.setdefault(rec["kernel"], []).append(rec)
+    n_sets = len(OT.FEATURE_SETS)
+    check([len(by[name]) for name in PROBE_KERNELS] == [2, 2, 1, 1, n_sets, n_sets], f"one record a probe: {list(by)}")
+    mma = {rec["mode"]: rec for rec in by["transpose_mma"]}
+    check(mma["3xtf32"]["bitwise_equal"], "3xTF32 on the tensor cores is bitwise x.T")
+    orient = {(rec["kernel"], rec["features"]): rec for rec in records if "features" in rec}
+    for name in ("orientation_a", "orientation_b"):
+        reps = OT.REPS_A if name[-1] == "a" else OT.REPS_B
+        check(all(orient[(name, f)]["reps"] == reps for f in OT.FEATURE_SETS), f"{name} runs the TPU probe's size")
+        check(orient[(name, "jax")]["zero"], f"{name} at the TPU probe's own inputs and size is zero")
+        check(orient[(name, "passing")]["passed_share"] > 0.1, f"{name}'s passing set passes the gate")
+        sparse = orient[(name, "sparse")]
+        check(sparse["trans_bitwise"] and sparse["passed_pair_pixels"] == reps * P.NPIX and sparse["trans_min"] > 0,
+              f"{name}'s sparse set keeps T above zero through the walk, bitwise its plain version's: {sparse}")
+    t1 = time.perf_counter()
+    errs = {name: max(rec["max_abs_err"] for rec in by[name]) for name in PROBE_KERNELS}
+    for name, err in probe_checks(dev).items():
+        errs[name] = max(errs[name], err)
+    checks_s = time.perf_counter() - t1
+
+    def row(name, rec, **extra):
+        source, replaces = PROBE_KERNELS[name]
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches[name],
+                "max_abs_err": errs[name], "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+                "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+                "share_of_bound": rec["bound_ms"] / rec["ms"] if rec["ms"] else None, **extra}
+
+    def orientation_row(name):
+        rec, jax, sparse = orient[(name, "passing")], orient[(name, "jax")], orient[(name, "sparse")]
+        keys = ("ns_per_pair_pixel", "pair_pixels", "passed_pair_pixels", "passed_share", "instruction_bound_ms",
+                "share_of_instruction_bound")
+        other = ("ms", "bound_ms", "share_of_bound", *keys)
+        return row(name, rec, features="passing", t0=1.0, **{k: rec[k] for k in keys},
+                   jax_inputs={k: jax[k] for k in other},
+                   sparse={k: sparse[k] for k in (*other, "trans_min", "trans_max")})
+
+    t1_rec, t2_rec = by["transpose_smem"]
+    rows = [
+        row("transpose_smem", t1_rec, also_replaces="scripts/probe_transpose.py:23",
+            t2={k: t2_rec[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}),
+        row("transpose_mma", mma["3xtf32"], mode="3xtf32",
+            tf32={k: mma["tf32"][k] for k in ("ms", "plain_ms", "bitwise_equal", "max_rel_err", "bound_ms")}),
+        row("transpose_block_async", by["transpose_block_async"][0]),
+        row("lane_dma", by["lane_dma"][0]),
+        orientation_row("orientation_a"),
+        orientation_row("orientation_b"),
+    ]
+    keep = ("probe", "kernel", "features", "mode", "ms", "plain_ms", "library_ms", "bound_ms", "bitwise_equal",
+            "max_rel_err", "ns_per_pair_pixel", "passed_share", "instruction_bound_ms", "max_abs_err",
+            "trans_bitwise", "trans_min")
+    return {"launches": launches, "tools_s": tools_s, "checks_s": checks_s, "max_abs_err": errs,
+            "records": [{k: rec[k] for k in keep if k in rec} for rec in records],
+            "script_s_so_far": time.perf_counter() - t_main}, rows
+
+
 def main() -> int:
     t_main = time.perf_counter()
     import torch
@@ -2492,6 +2687,10 @@ def main() -> int:
     bench, bench_launches = bench_phase(dev, t_main, capacity, head_demand, real["pair_demand"], real["k_exec"])
     emit({"phase": "bench", **bench})
 
+    # -- phase 15: the TPU probes' counterparts --
+    probes, probe_rows = probes_phase(dev, t_main)
+    emit({"phase": "probes", **probes})
+
     def at_tiles(kernel):
         """A kernel's times and bounds at each tiling of phase 12 (a)."""
         rows = {}
@@ -2544,6 +2743,7 @@ def main() -> int:
             "plain_ms": real["backward_carry_plain_ms"], "library_ms": None,
             **bound_fields(real["backward_carry_bound"], real["backward_carry_ms"]),
         },
+        *probe_rows,
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -399,13 +399,11 @@ struct PairEval {
   bool valid;       // alpha > min_alpha && density <= 0 && pixel in bbox
 };
 
-// One pair at one pixel; s points at the pair's staged row.
+// One pair at one pixel, from the first 13 floats of its row: a = (mx, my,
+// cx, cy), b = (cxy, op, r, g), c = (b, x0, y0, x1) and y1.
 __device__ __forceinline__ PairEval eval_pair(
-    const float* s, float px, float py, float min_alpha, float max_alpha) {
-  const float4 a = *reinterpret_cast<const float4*>(s);       // mx, my, cx, cy
-  const float4 b = *reinterpret_cast<const float4*>(s + 4);   // cxy, op, r, g
-  const float4 c = *reinterpret_cast<const float4*>(s + 8);   // b, x0, y0, x1
-  const float y1 = s[Y1];
+    const float4 a, const float4 b, const float4 c, const float y1, float px, float py, float min_alpha,
+    float max_alpha) {
   PairEval e;
   e.dx = __fsub_rn(a.x, px);
   e.dy = __fsub_rn(a.y, py);
@@ -421,6 +419,13 @@ __device__ __forceinline__ PairEval eval_pair(
   const bool inside = px >= c.y && px < c.w && py >= c.z && py < y1;
   e.valid = e.alpha > min_alpha && e.density <= 0.0f && inside;
   return e;
+}
+
+// One pair at one pixel; s points at the pair's staged row.
+__device__ __forceinline__ PairEval eval_pair(
+    const float* s, float px, float py, float min_alpha, float max_alpha) {
+  return eval_pair(*reinterpret_cast<const float4*>(s), *reinterpret_cast<const float4*>(s + 4),
+                   *reinterpret_cast<const float4*>(s + 8), s[Y1], px, py, min_alpha, max_alpha);
 }
 
 }  // namespace gsplat

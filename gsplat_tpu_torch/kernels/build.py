@@ -24,7 +24,12 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 
 # Kernel name -> source file under csrc/.
-SOURCES = {"raster_fwd": "raster_fwd.cu", "raster_bwd": "raster_bwd.cu"}
+SOURCES = {
+    "raster_fwd": "raster_fwd.cu", "raster_bwd": "raster_bwd.cu",
+    # The TPU probes' counterparts (kernels/probes.py).
+    "probe_transpose": "probe_transpose.cu", "probe_lane_dma": "probe_lane_dma.cu",
+    "probe_orientation": "probe_orientation.cu",
+}
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",

@@ -720,3 +720,77 @@ def test_bench_step_on_card_matches_cpu(device):
             assert forward_tiles.launches - before == (2 if dev == "cuda" else 0)
     for stop in (0.0, 1e-4):
         assert losses["cuda", stop] == pytest.approx(losses["cpu", stop], rel=1e-5), (stop, losses)
+
+
+def test_probe_transpose_kernels_on_card(device):
+    """``tools/probe_transpose.py``'s kernels (``kernels/probes.py``) bitwise
+    their plain versions on the card: both shared-memory transposes, seven
+    slabs through the bulk copy, and the tensor-core transpose in both
+    modes, on normal draws, draws over 2^-30-2^30 and exact TF32 ties (where
+    one-pass rounding goes away from zero); 3xTF32 is bitwise ``x.T``."""
+    from gsplat_tpu_torch.kernels import probes as P
+    from torch_fixtures import tf32_ties
+
+    rng = np.random.default_rng(15)
+    wide = rng.normal(size=(16, 128)) * 2.0 ** rng.uniform(-30, 30, (16, 128))
+    for block in (rng.normal(size=(16, 128)), wide, tf32_ties(rng, (16, 128))):
+        x = torch.from_numpy(block.astype(np.float32)).to(device)
+        before = P.transpose_mma.launches
+        for split3 in (False, True):
+            assert torch.equal(P.transpose_mma(x, split3), P.transpose_mma_plain(x, split3)), split3
+        assert torch.equal(P.transpose_mma(x, True), x.t())
+        assert P.transpose_mma.launches - before == 3
+        for t in (x, x.t().contiguous()):
+            assert torch.equal(P.transpose_smem(t), t.t())
+    xb = torch.from_numpy(rng.normal(size=(7, 16, 128)).astype(np.float32)).to(device)
+    assert torch.equal(P.transpose_block_async(xb), P.transpose_block_plain(xb))
+    with pytest.raises(ValueError):
+        P.transpose_smem(torch.zeros((16, 64), device=device))
+
+
+def test_probe_lane_dma_on_card(device):
+    """``tools/probe_lane_dma.py``'s TMA lane copy bitwise its plain version
+    on a ``[16, 1024]`` array, every slice once in shuffled order, and
+    refused for a start off the 128 grid or past the array."""
+    from gsplat_tpu_torch.kernels import probes as P
+
+    x = torch.from_numpy(np.random.default_rng(16).normal(size=(16, 1024)).astype(np.float32)).to(device)
+    starts = [768, 0, 512, 256, 128, 896, 640, 384]
+    before = P.lane_dma.launches
+    got = P.lane_dma(x, starts)
+    assert P.lane_dma.launches - before == 1
+    assert torch.equal(got, P.lane_dma_plain(x, starts)) and torch.equal(got, x * 2)
+    for bad in ([64], [1024], [-128], []):
+        with pytest.raises(ValueError):
+            P.lane_dma(x, bad)
+
+
+@pytest.mark.parametrize("orientation", ["a", "b"])
+def test_orientation_kernels_on_card(device, orientation):
+    """``tools/orientation_test.py``'s kernels against their plain versions
+    on the card at 3 chunks: zero at ``t0 = 0``, within rtol 1e-5 / atol
+    1e-6 at ``t0`` 0.5 and 1 (the card's ``expf`` against PyTorch's), at the
+    TPU probe's inputs, the passing set and the sparse set, where T is
+    bitwise the plain version's."""
+    import sys
+
+    from gsplat_tpu_torch.kernels import probes as P
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tools"))
+    import orientation_test
+
+    wrapper, plain = ((P.orientation_a, P.orientation_a_plain) if orientation == "a"
+                      else (P.orientation_b, P.orientation_b_plain))
+    blocks = {"jax": orientation_test.jax_features(orientation),
+              "passing": orientation_test.passing_features(orientation, seed=3),
+              "sparse": orientation_test.sparse_features(orientation, seed=3)}
+    for features, block in blocks.items():
+        feat = torch.from_numpy(block).to(device)
+        assert bool((wrapper(feat, 3, 0.0) == 0).all())
+        for t0 in (0.5, 1.0):
+            got, want = wrapper(feat, 3, t0), plain(feat, 3, t0)
+            assert torch.isfinite(got).all()
+            torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+            if features == "sparse":
+                trans = orientation_test.transmittance
+                assert torch.equal(trans(got, orientation), trans(want, orientation))
