@@ -137,13 +137,19 @@ then runs fifteen phases, each printing one JSON line:
      JSON and every check of theirs holding on this card: the transposes,
      the bulk-copy slabs, both tensor-core modes and the TMA lane copy
      bitwise their plain versions, and all but one-pass TF32 bitwise the
-     TPU probes' expectation; both orientation kernels at 268M pair-pixels
+     TPU probes' expectation; the transposes and both tensor-core modes
+     at the tool's special blocks too (inf, NaN, signed zeros, subnormals,
+     the smallest and largest normals, TF32 ties; random 32-bit patterns
+     through the shared-memory transpose): NaN where the plain version
+     has it, every other element's bits equal, and 3xTF32 bitwise ``x.T``
+     at the finite normal blocks; both orientation kernels at 268M pair-pixels
      within rtol 1e-5 of their plain versions, zero at the TPU probe's
      inputs, and at the sparse set (one passed pair a pixel a chunk, T
      above zero to the end) T bitwise theirs; each probe kernel's launches
      the tools' plan. Then the orientation kernels at 2 chunks
      (``probe_checks``): exactly zero at t0 = 0 and within rtol 1e-5 of
-     their plain versions at t0 = 1. Their times (orientation: ms and ns a
+     their plain versions at t0 = 1. Their times (the transposes: medians
+     and quartiles of alternating rounds; orientation: ms and ns a
      pair-pixel at each feature set beside the one-SM bounds) go to the
      ``kernels`` line.
 
@@ -418,13 +424,10 @@ def device_busy_ms(fn):
     return busy_us / 1e3 if busy_us > 0 else None
 
 
-def graph_ms(fn, runs: int, warmup: int = 0):
-    """Device milliseconds of one ``fn()``, for calls whose host work
-    outlasts their device work (CUDA events around one call would time the
-    host): after ``warmup`` calls, ``runs`` calls are captured in one CUDA
-    graph, which is replayed once untimed (the first replay uploads it) and
-    once between two CUDA events; the time over ``runs``. A wrapper counts
-    a captured call's launch once."""
+def capture_graph(fn, runs: int, warmup: int = 0):
+    """``runs`` calls of ``fn()`` captured in one CUDA graph after ``warmup``
+    calls, and replayed once untimed (the first replay uploads it). A
+    wrapper counts a captured call's launch once."""
     import torch
 
     for _ in range(warmup):
@@ -435,12 +438,41 @@ def graph_ms(fn, runs: int, warmup: int = 0):
         for _ in range(runs):
             fn()
     graph.replay()
+    return graph
+
+
+def replay_ms(graph, runs: int, sleep_cycles: int = 0) -> float:
+    """Device milliseconds of one of the ``runs`` calls in ``graph``: one
+    replay between two CUDA events, over ``runs``. With ``sleep_cycles``
+    the device first spins that many clock cycles (``torch.cuda._sleep``)
+    while the host enqueues the events and the replay, so that the events
+    time the graph's kernels back to back and not the host's launch of the
+    graph; a replay that takes the host longer to enqueue raises."""
+    import torch
+
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    slept = torch.cuda.Event(enable_timing=True)
+    if sleep_cycles:
+        slept.record()
+        torch.cuda._sleep(sleep_cycles)
     start.record()
+    t0 = time.perf_counter()
     graph.replay()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
     end.record()
     torch.cuda.synchronize()
+    if sleep_cycles and enqueue_ms >= slept.elapsed_time(start):
+        raise RuntimeError(f"the host took {enqueue_ms} ms to enqueue a graph replay, longer than the device slept "
+                           f"({slept.elapsed_time(start)} ms): raise sleep_cycles")
     return start.elapsed_time(end) / runs
+
+
+def graph_ms(fn, runs: int, warmup: int = 0):
+    """Device milliseconds of one ``fn()``, for calls whose host work
+    outlasts their device work (CUDA events around one call would time the
+    host): one timed replay of :func:`capture_graph`'s graph of ``runs``
+    calls, over ``runs``."""
+    return replay_ms(capture_graph(fn, runs, warmup), runs)
 
 
 def host_syncs(fn) -> int:
@@ -2201,7 +2233,9 @@ def probes_phase(dev, t_main: float):
         check(rec["ok"] and rec["device"] == dev.type and rec["nvidia_smi"] == smi and (not on_card or rec["ms"] > 0),
               f"probe {rec['probe']} ({rec.get('features', rec.get('mode', ''))}) holds on this card: {rec}")
     per_t, per_o = 1 + on_card * (PT.WARMUP + PT.ITERS), len(OT.FEATURE_SETS) * (1 + on_card * (OT.WARMUP + OT.ITERS))
-    planned = {"transpose_smem": 2 * per_t, "transpose_mma": 2 * per_t, "transpose_block_async": per_t,
+    n_special = len(PT.special_blocks())  # one launch a block and mode, a block and shape with the random bits
+    planned = {"transpose_smem": 2 * (per_t + n_special + 1), "transpose_mma": 2 * (per_t + n_special),
+               "transpose_block_async": per_t,
                "lane_dma": 1 + on_card * (PLD.WARMUP + PLD.ITERS), "orientation_a": per_o, "orientation_b": per_o}
     check(launches == planned, f"probe kernel launches {launches} are the tools' plan {planned}")
     by = {}
@@ -2211,6 +2245,9 @@ def probes_phase(dev, t_main: float):
     check([len(by[name]) for name in PROBE_KERNELS] == [2, 2, 1, 1, n_sets, n_sets], f"one record a probe: {list(by)}")
     mma = {rec["mode"]: rec for rec in by["transpose_mma"]}
     check(mma["3xtf32"]["bitwise_equal"], "3xTF32 on the tensor cores is bitwise x.T")
+    check(mma["3xtf32"]["special_x_t_equal"], "3xTF32 is bitwise x.T at the finite normal special blocks")
+    for rec in by["transpose_smem"] + by["transpose_mma"]:
+        check(rec["special_bitwise_equal"], f"{rec['probe']} holds its plain version at every special block")
     orient = {(rec["kernel"], rec["features"]): rec for rec in records if "features" in rec}
     for name in ("orientation_a", "orientation_b"):
         reps = OT.REPS_A if name[-1] == "a" else OT.REPS_B
@@ -2228,10 +2265,11 @@ def probes_phase(dev, t_main: float):
 
     def row(name, rec, **extra):
         source, replaces = PROBE_KERNELS[name]
+        quartiles = {k: rec[k] for k in ("ms_quartiles", "plain_ms_quartiles", "library_ms_quartiles") if k in rec}
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches[name],
                 "max_abs_err": errs[name], "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                 "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
-                "share_of_bound": rec["bound_ms"] / rec["ms"] if rec["ms"] else None, **extra}
+                "share_of_bound": rec["bound_ms"] / rec["ms"] if rec["ms"] else None, **quartiles, **extra}
 
     def orientation_row(name):
         rec, jax, sparse = orient[(name, "passing")], orient[(name, "jax")], orient[(name, "sparse")]
@@ -2243,19 +2281,20 @@ def probes_phase(dev, t_main: float):
                    sparse={k: sparse[k] for k in (*other, "trans_min", "trans_max")})
 
     t1_rec, t2_rec = by["transpose_smem"]
+    timed = ("ms", "ms_quartiles", "plain_ms", "plain_ms_quartiles")
     rows = [
         row("transpose_smem", t1_rec, also_replaces="scripts/probe_transpose.py:23",
-            t2={k: t2_rec[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}),
+            t2={k: t2_rec.get(k) for k in (*timed, "library_ms", "library_ms_quartiles", "bound_ms")}),
         row("transpose_mma", mma["3xtf32"], mode="3xtf32",
-            tf32={k: mma["tf32"][k] for k in ("ms", "plain_ms", "bitwise_equal", "max_rel_err", "bound_ms")}),
+            tf32={k: mma["tf32"].get(k) for k in (*timed, "bitwise_equal", "max_rel_err", "bound_ms")}),
         row("transpose_block_async", by["transpose_block_async"][0]),
         row("lane_dma", by["lane_dma"][0]),
         orientation_row("orientation_a"),
         orientation_row("orientation_b"),
     ]
-    keep = ("probe", "kernel", "features", "mode", "ms", "plain_ms", "library_ms", "bound_ms", "bitwise_equal",
-            "max_rel_err", "ns_per_pair_pixel", "passed_share", "instruction_bound_ms", "max_abs_err",
-            "trans_bitwise", "trans_min")
+    keep = ("probe", "kernel", "features", "mode", "ms", "ms_quartiles", "plain_ms", "library_ms", "bound_ms",
+            "bitwise_equal", "special_bitwise_equal", "max_rel_err", "ns_per_pair_pixel", "passed_share",
+            "instruction_bound_ms", "max_abs_err", "trans_bitwise", "trans_min")
     return {"launches": launches, "tools_s": tools_s, "checks_s": checks_s, "max_abs_err": errs,
             "records": [{k: rec[k] for k in keep if k in rec} for rec in records],
             "script_s_so_far": time.perf_counter() - t_main}, rows

@@ -58,6 +58,11 @@ def _require(who: str, x: torch.Tensor) -> None:
         raise ValueError(f"{who}: unsupported device {x.device}")
 
 
+def _require_aligned(who: str, x: torch.Tensor) -> None:
+    if x.data_ptr() % 16:
+        raise ValueError(f"{who}: x must be 16-byte aligned")
+
+
 def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
@@ -80,13 +85,14 @@ def transpose_plain(x: torch.Tensor) -> torch.Tensor:
 
 def transpose_smem(x: torch.Tensor) -> torch.Tensor:
     """``x [16, 128]`` or ``[128, 16]`` f32 transposed (``t1_kernel`` /
-    ``t2_kernel``): the shared-memory kernel on a CUDA tensor, the plain
-    version on a CPU tensor."""
+    ``t2_kernel``), every 32-bit pattern unchanged: the shared-memory
+    kernel on a CUDA tensor, the plain version on a CPU tensor."""
     if tuple(x.shape) not in (SLAB, SLAB[::-1]):
         raise ValueError(f"transpose_smem: x must be {SLAB} or {SLAB[::-1]}, got {tuple(x.shape)}")
     _require("transpose_smem", x)
     if x.device.type == "cpu":
         return transpose_plain(x)
+    _require_aligned("transpose_smem", x)
     out = torch.empty(x.shape[::-1], dtype=x.dtype, device=x.device)
     fn = build.load_function("probe_transpose", "gsplat_probe_transpose_smem", (_P, _P, _I, _I, _P))
     _raise_on(fn(x.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1], _stream(x)), "transpose_smem")
@@ -110,8 +116,7 @@ def transpose_block_async(x: torch.Tensor) -> torch.Tensor:
     _require("transpose_block_async", x)
     if x.device.type == "cpu":
         return transpose_block_plain(x)
-    if x.data_ptr() % 16:
-        raise ValueError("transpose_block_async: x must be 16-byte aligned")
+    _require_aligned("transpose_block_async", x)
     out = torch.empty((x.shape[0], *SLAB[::-1]), dtype=x.dtype, device=x.device)
     fn = build.load_function("probe_transpose", "gsplat_probe_transpose_block_async", (_P, _P, _I, _P))
     _raise_on(fn(x.data_ptr(), out.data_ptr(), x.shape[0], _stream(x)), "transpose_block_async")
@@ -119,45 +124,92 @@ def transpose_block_async(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+_EXP_BITS = 0x7F800000
+_TF32_MASK = -0x2000  # keeps the top 19 bits of an f32 pattern: sign, exponent, 10 mantissa bits
+_TINY_EXP = 64 << 23  # 3xTF32 splits an element below 2^-63 scaled by 2^64
+
+
 def tf32_round(x: torch.Tensor) -> torch.Tensor:
-    """f32 rounded to TF32's 10 mantissa bits, to nearest with ties away from
-    zero (``cvt.rna.tf32.f32``), on the int32 view: add half of the 13
-    dropped bits' unit to the magnitude, then clear them."""
+    """Finite f32 rounded to TF32's 10 mantissa bits, to nearest with ties
+    away from zero (``cvt.rna.tf32.f32``'s rounding), on the int32 view: add
+    half of the 13 dropped bits' unit to the magnitude, then clear them.
+    Past TF32's largest value the carry gives inf."""
     bits = x.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+    return ((bits + 0x1000) & _TF32_MASK).view(torch.float32)
+
+
+def _tf32_trunc(x: torch.Tensor) -> torch.Tensor:
+    return (x.contiguous().view(torch.int32) & _TF32_MASK).view(torch.float32)
+
+
+def _exponent(x: torch.Tensor) -> torch.Tensor:
+    return x.contiguous().view(torch.int32) & _EXP_BITS
+
+
+def tf32_stage(x: torch.Tensor) -> torch.Tensor:
+    """How the tensor-core kernel stages ``x`` in one-pass TF32: zeros and
+    subnormals as +0, inf and NaN whole, every other element
+    :func:`tf32_round`."""
+    e = _exponent(x)
+    staged = torch.where(e == _EXP_BITS, x, tf32_round(x))
+    return torch.where(e == 0, torch.zeros_like(x), staged)
 
 
 def tf32_split(x: torch.Tensor):
-    """``x = hi + mid + lo``, each exact in TF32: ``hi`` is ``x`` rounded,
-    ``mid`` the residual rounded, ``lo`` what remains (the f32 residuals
-    are exact)."""
-    hi = tf32_round(x)
-    r1 = x - hi
-    mid = tf32_round(r1)
-    return hi, mid, tf32_round(r1 - mid)
+    """How the tensor-core kernel stages ``x`` in 3xTF32: ``(hi, mid, lo,
+    unscale)`` with ``((hi + mid) + lo) * unscale == x`` for every finite
+    normal ``x``, each part exact in TF32 and none subnormal. The split is
+    by truncation (``hi`` the top 11 significant bits, ``mid`` the next 11,
+    ``lo`` the last 2: no part overflows); an element below 2^-63 is split
+    scaled by 2^64 and its ``unscale`` is 2^-64, else 1. Zeros and
+    subnormals give +0 parts; inf and NaN pass whole into ``hi``, their
+    other parts +0."""
+    e = _exponent(x)
+    normal = (e != 0) & (e != _EXP_BITS)
+    tiny = normal & (e < _TINY_EXP)
+    v = torch.where(normal, x, 0.0) * torch.where(tiny, 2.0**64, 1.0)  # exact
+    hi = _tf32_trunc(v)
+    r1 = v - hi  # exact: the low 13 bits
+    mid = _tf32_trunc(r1)
+    return torch.where(e == _EXP_BITS, x, hi), mid, r1 - mid, torch.where(tiny, 2.0**-64, 1.0)
+
+
+def _eye_product(part: torch.Tensor) -> torch.Tensor:
+    """``eye(128) . part^T`` for ``part [16, 128]`` as the f32 product gives
+    it from a +0 accumulator: ``out[i, n] = 0 + sum_k eye[i, k] part[n, k]``,
+    every term formed (``0 * inf`` and ``0 * NaN`` are NaN). Each element
+    has one nonzero term, so it is ``part[n, i]`` exactly (``+0`` for a
+    zero) where no other element of ``part[n]`` is inf or NaN, else NaN."""
+    eye = torch.eye(part.shape[1], dtype=part.dtype, device=part.device)
+    return (eye[:, None, :] * part[None, :, :]).sum(-1) + 0.0
 
 
 def transpose_mma_plain(x: torch.Tensor, split3: bool) -> torch.Tensor:
-    """The tensor-core kernel's function: ``eye(128) . x^T`` with ``x``
-    rounded once to TF32 (``split3`` False), or as the f32 sum
-    ``(hi + mid) + lo`` of its three TF32 parts (True). Each output element
-    has one nonzero product, so the product is the transpose of those
-    values."""
+    """The tensor-core kernel's function, ``eye(128) . x^T`` as staged: in
+    one pass the product of :func:`tf32_stage`'s ``x`` (``split3`` False);
+    in 3xTF32 the f32 sum ``(hi + mid) + lo`` of the products of
+    :func:`tf32_split`'s parts, times each element's ``unscale`` (True),
+    which is the product of ``x`` that ``mxu_t_kernel`` computes: ``x.T``
+    for finite ``x``, with subnormals and ``-0.0`` read as +0, and NaN down
+    a column of ``x.T`` that holds inf or NaN (inf where the inf is)."""
     if not split3:
-        return transpose_plain(tf32_round(x))
-    hi, mid, lo = tf32_split(x)
-    return transpose_plain((hi + mid) + lo)
+        return _eye_product(tf32_stage(x))
+    hi, mid, lo, unscale = tf32_split(x)
+    return ((_eye_product(hi) + _eye_product(mid)) + _eye_product(lo)) * unscale.t()
 
 
 def transpose_mma(x: torch.Tensor, split3: bool) -> torch.Tensor:
     """``eye(128) . x^T`` of ``x [16, 128]`` f32 (``mxu_t_kernel``): on a CUDA
-    tensor ``mma.sync`` m16n8k8 in TF32, one pass or 3xTF32; the plain
-    version on a CPU tensor."""
+    tensor ``mma.sync`` m16n8k8 in TF32, one pass or 3xTF32, over every
+    k-step of the product, a block an output tile of 16 rows by 8 columns
+    (two in one pass) whose warps share its k-steps; the plain version on a
+    CPU tensor."""
     if tuple(x.shape) != SLAB:
         raise ValueError(f"transpose_mma: x must be {SLAB}, got {tuple(x.shape)}")
     _require("transpose_mma", x)
     if x.device.type == "cpu":
         return transpose_mma_plain(x, split3)
+    _require_aligned("transpose_mma", x)
     out = torch.empty(SLAB[::-1], dtype=x.dtype, device=x.device)
     fn = build.load_function("probe_transpose", "gsplat_probe_transpose_mma", (_P, _P, _I, _P))
     _raise_on(fn(x.data_ptr(), out.data_ptr(), int(bool(split3)), _stream(x)), "transpose_mma")

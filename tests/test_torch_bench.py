@@ -36,6 +36,7 @@ from gsplat_tpu.ops.camera import CameraArrays as JCameraArrays
 import gsplat_tpu_torch as tgs
 
 from fixtures import make_camera, random_splat_arrays, write_synthetic_scene
+from torch_fixtures import one_intra_op_thread  # noqa: F401  (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOOLS = os.path.join(ROOT, "tools")

@@ -39,6 +39,7 @@ import gsplat_tpu_torch as tgs
 from gsplat_tpu_torch.cli import cli
 
 from fixtures import make_camera, write_synthetic_scene
+from torch_fixtures import one_intra_op_thread  # noqa: F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VIDEO_NAME = "video_render.mp4" if shutil.which("ffmpeg") else "video_render.avi"

@@ -42,6 +42,7 @@ from gsplat_tpu_torch.render.pipeline import preprocess
 from gsplat_tpu_torch.render.tile_torch import tile_pixel_coords
 
 from fixtures import orbit_camera, random_splat_arrays
+from torch_fixtures import one_intra_op_thread  # noqa: F401  (autouse)
 
 WIDTH, HEIGHT = 64, 48
 

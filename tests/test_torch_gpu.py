@@ -727,13 +727,23 @@ def test_probe_transpose_kernels_on_card(device):
     their plain versions on the card: both shared-memory transposes, seven
     slabs through the bulk copy, and the tensor-core transpose in both
     modes, on normal draws, draws over 2^-30-2^30 and exact TF32 ties (where
-    one-pass rounding goes away from zero); 3xTF32 is bitwise ``x.T``."""
+    one-pass rounding goes away from zero); 3xTF32 is bitwise ``x.T``. At
+    the tool's special blocks (inf, NaN, signed zeros, subnormals, the
+    smallest and largest normals) the tensor-core transpose in both modes
+    has NaN where its plain version has and every other element's bits;
+    3xTF32 is bitwise ``x.T`` at the finite normal blocks; both
+    shared-memory transposes move those blocks and random 32-bit patterns
+    bit for bit."""
+    import sys
+
     from gsplat_tpu_torch.kernels import probes as P
-    from torch_fixtures import tf32_ties
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tools"))
+    import probe_transpose as PT
 
     rng = np.random.default_rng(15)
     wide = rng.normal(size=(16, 128)) * 2.0 ** rng.uniform(-30, 30, (16, 128))
-    for block in (rng.normal(size=(16, 128)), wide, tf32_ties(rng, (16, 128))):
+    for block in (rng.normal(size=(16, 128)), wide, PT.tf32_ties(rng, (16, 128))):
         x = torch.from_numpy(block.astype(np.float32)).to(device)
         before = P.transpose_mma.launches
         for split3 in (False, True):
@@ -742,10 +752,25 @@ def test_probe_transpose_kernels_on_card(device):
         assert P.transpose_mma.launches - before == 3
         for t in (x, x.t().contiguous()):
             assert torch.equal(P.transpose_smem(t), t.t())
+    special = PT.special_blocks()
+    for name, block in special.items():
+        x = torch.from_numpy(block).to(device)
+        for split3 in (False, True):
+            got = P.transpose_mma(x, split3)
+            assert PT.same_values(got, P.transpose_mma_plain(x, split3)), (name, split3)
+            if split3 and name in PT.FINITE_NORMAL:
+                assert torch.equal(got, x.t()), name
+    for block in (*special.values(), PT.random_bits()):
+        x = torch.from_numpy(block).to(device)
+        for t in (x, x.t().contiguous()):
+            assert torch.equal(P.transpose_smem(t).view(torch.int32), t.t().contiguous().view(torch.int32))
+    assert PT.special_checks(device)["mma"] == {"tf32": True, "3xtf32": True, "x_t": True}
     xb = torch.from_numpy(rng.normal(size=(7, 16, 128)).astype(np.float32)).to(device)
     assert torch.equal(P.transpose_block_async(xb), P.transpose_block_plain(xb))
     with pytest.raises(ValueError):
         P.transpose_smem(torch.zeros((16, 64), device=device))
+    with pytest.raises(ValueError):  # the float4 loads need 16-byte alignment
+        P.transpose_mma(torch.zeros(16 * 128 + 1, device=device)[1:].view(16, 128), True)
 
 
 def test_probe_lane_dma_on_card(device):

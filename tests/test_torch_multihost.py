@@ -51,6 +51,7 @@ from gsplat_tpu_torch.parallel import initialize_distributed, make_mesh, make_pa
 from gsplat_tpu_torch.render.pipeline import preprocess_traced as t_preprocess_traced
 
 from fixtures import orbit_camera, random_splat_arrays
+from torch_fixtures import one_intra_op_thread  # noqa: F401  (autouse)
 
 TOOLS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tools")
 sys.path.insert(0, TOOLS)  # the spawned ranks of virtual mode import the harness by name too

@@ -32,6 +32,7 @@ from gsplat_tpu_torch.ops.sh import sh_to_rgb
 from gsplat_tpu_torch.render.pipeline import preprocess
 
 from fixtures import make_camera, orbit_camera, random_splat_arrays
+from torch_fixtures import one_intra_op_thread  # noqa: F401  (autouse)
 
 RTOL, ATOL = 1e-5, 1e-6
 CPU = "cpu"

@@ -40,6 +40,7 @@ from gsplat_tpu_torch.parallel import shard as tshard
 
 import torch_mesh_worker as worker
 from fixtures import orbit_camera, random_splat_arrays
+from torch_fixtures import one_intra_op_thread  # noqa: F401  (autouse)
 
 JCFG = JRasterConfig(**worker.SMALL, use_pallas=False)
 W, H = worker.W, worker.H

@@ -41,6 +41,7 @@ import gsplat_tpu_torch as tgs
 
 import torch_mesh_worker as worker
 from fixtures import orbit_camera, random_splat_arrays
+from torch_fixtures import one_intra_op_thread  # noqa: F401  (autouse)
 
 JCFG = JRasterConfig(**worker.SMALL, use_pallas=False)
 W, H = worker.W, worker.H

@@ -10,10 +10,15 @@ compared with the plain version of its counterpart in
 ``gsplat_tpu_torch/kernels/probes.py``, which is what the wrappers run on a
 CPU tensor:
 
-* the transposes, the slab copy and the lane copy bitwise; the tensor-core
-  transpose in 3xTF32 bitwise the MXU's ``Precision.HIGHEST`` product
-  (``x.T``), and in one-pass TF32 bitwise ``x`` rounded to TF32 by numpy
-  (round to nearest, ties away from zero, in float64);
+* the transposes, the slab copy and the lane copy bitwise, the transposes
+  at every 32-bit pattern tested too; the tensor-core transpose in 3xTF32
+  bitwise the MXU's ``Precision.HIGHEST`` product (``x.T`` for finite
+  normal ``x``), and in one-pass TF32 bitwise ``x`` rounded to TF32 by
+  numpy (round to nearest, ties away from zero, in float64); at inf, NaN,
+  signed zeros, subnormals and the extremes of the normals
+  (``tools/probe_transpose.py::special_blocks``) both modes follow the
+  product's rules (:func:`_product_rules`), NaN positions compared by
+  ``isnan`` and every other element by its bits;
 * the orientation kernels, with ``REPS_A`` / ``REPS_B`` patched down to a
   few chunks, at the script's own inputs and ``t0 = 0`` (the TPU kernels'
   function): exactly the TPU kernels' output, which is zero;
@@ -47,7 +52,7 @@ from jax.experimental.pallas import tpu as pltpu
 from gsplat_tpu.ops.compositing import render_oracle
 from gsplat_tpu.ops.projection import Preprocessed
 from gsplat_tpu_torch.kernels import probes as P
-from torch_fixtures import tf32_ties
+from torch_fixtures import one_intra_op_thread  # noqa: F401  (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPTS = os.path.join(ROOT, "scripts")
@@ -126,11 +131,12 @@ def _tf32_numpy(x: np.ndarray) -> np.ndarray:
     zero, in float64 (independent of the port's bit arithmetic)."""
     x64 = x.astype(np.float64)
     ulp = 2.0 ** (np.floor(np.log2(np.abs(x64))) - 10)
-    return (np.sign(x64) * np.floor(np.abs(x64) / ulp + 0.5) * ulp).astype(np.float32)
+    with np.errstate(over="ignore"):  # past TF32's largest value: inf
+        return (np.sign(x64) * np.floor(np.abs(x64) / ulp + 0.5) * ulp).astype(np.float32)
 
 
 @pytest.mark.parametrize("split3", [False, True], ids=["tf32", "3xtf32"])
-def test_mma_transpose_matches_jax(scripts, split3):
+def test_mma_transpose_matches_jax(scripts, tools, split3):
     """``mxu_t_kernel`` (``eye(128) . x^T`` at ``Precision.HIGHEST``) is
     ``x.T``; ``transpose_mma``'s plain version gives it bitwise in 3xTF32,
     and in one pass ``x`` rounded to TF32 (checked against numpy on the
@@ -142,22 +148,118 @@ def test_mma_transpose_matches_jax(scripts, split3):
     if split3:
         assert np.array_equal(got, want)
         return
-    ties = tf32_ties(np.random.default_rng(0), (16, 128))
+    ties = tools["probe_transpose"].tf32_ties(np.random.default_rng(0), (16, 128))
     for block in (x, ties):
         assert np.array_equal(P.transpose_mma(torch.from_numpy(block), False).numpy(), _tf32_numpy(block).T)
     assert not np.array_equal(got, want)
     assert np.max(np.abs(got - want) / np.abs(want)) <= 2.0**-11
 
 
+def _flushed(x: np.ndarray) -> np.ndarray:
+    """``x`` with zeros and subnormals as +0 (XLA's CPU dot reads a
+    subnormal as zero)."""
+    return np.where(np.abs(x) < np.finfo(np.float32).tiny, np.float32(0), x).astype(np.float32)
+
+
+def _product_rules(v: np.ndarray) -> np.ndarray:
+    """``eye(128) . v^T`` for ``v [16, 128]`` by the rules of an f32 product
+    with one nonzero term an element and a +0 accumulator: ``out[i, n]`` is
+    NaN where ``v[n, i]`` is NaN or another element of ``v[n]`` is inf or
+    NaN (``0 * inf``), else ``v[n, i] + 0`` (inf stays, ``-0.0`` becomes
+    +0)."""
+    bad = ~np.isfinite(v)
+    with np.errstate(invalid="ignore"):
+        out = v.T.astype(np.float32) + np.float32(0)
+    out[np.isnan(v).T | (bad.sum(1)[None, :] - bad.T > 0)] = np.nan
+    return out
+
+
+def _same(a: np.ndarray, b: np.ndarray) -> bool:
+    """NaN at the same positions, every other element bitwise equal."""
+    nan_a, nan_b = np.isnan(a), np.isnan(b)
+    return np.array_equal(nan_a, nan_b) and np.array_equal(a.view(np.int32)[~nan_a], b.view(np.int32)[~nan_b])
+
+
+SPECIAL = ("inf", "nan", "signed_zero", "subnormal", "tiny_normal", "huge", "ties", "bits")
+
+
+def _special(tools, name: str) -> np.ndarray:
+    pt = tools["probe_transpose"]
+    return pt.random_bits() if name == "bits" else pt.special_blocks()[name]
+
+
+@pytest.mark.parametrize("name", SPECIAL)
+def test_mma_transpose_special_inputs_match_jax(scripts, tools, name):
+    """At inf, -inf, NaN (payloads too), -0.0, subnormals of both signs, the
+    smallest and largest normals, TF32 ties and random 32-bit patterns,
+    ``mxu_t_kernel`` in interpret mode follows the product's rules on ``x``
+    with its subnormals flushed (a column of the output holding inf of
+    ``x`` is NaN but for that inf, one holding NaN is all NaN, ``-0.0`` and
+    subnormals give +0), and ``transpose_mma``'s plain version in 3xTF32
+    gives it bitwise (NaN positions equal); in one-pass TF32 it follows
+    the same rules on ``x`` rounded to TF32 by numpy (where the rounding
+    passes TF32's largest value it gives inf, and the column NaN)."""
+    x = _special(tools, name)
+    want = _jax_transpose(scripts, "mxu", x)
+    v = _flushed(x)
+    assert _same(want, _product_rules(v))
+    assert _same(P.transpose_mma(torch.from_numpy(x), True).numpy(), want)
+    normal = np.isfinite(v) & (v != 0)
+    rounded = np.where(normal, _tf32_numpy(np.where(normal, v, np.float32(1))), v)
+    assert _same(P.transpose_mma(torch.from_numpy(x), False).numpy(), _product_rules(rounded))
+
+
+@pytest.mark.parametrize("which", ["t1", "t2"])
+def test_transposes_match_jax_at_every_bit_pattern(scripts, tools, which):
+    """``t1_kernel`` / ``t2_kernel`` in interpret mode and ``transpose_smem``
+    on the CPU move every 32-bit pattern unchanged: random patterns (NaN
+    payloads, infs, subnormals, signed zeros among them) and every special
+    block, compared by their bits."""
+    for name in SPECIAL:
+        x = _special(tools, name)
+        x = x if which == "t1" else np.ascontiguousarray(x.T)
+        want = _jax_transpose(scripts, which, x)
+        got = P.transpose_smem(torch.from_numpy(x)).numpy()
+        assert np.array_equal(want.view(np.int32), np.ascontiguousarray(x.T).view(np.int32)), name
+        assert np.array_equal(got.view(np.int32), want.view(np.int32)), name
+
+
 def test_tf32_split_is_exact():
-    """hi + mid + lo gives x back, each part with its 13 low bits clear, over
-    magnitudes 2^-60-2^60."""
+    """hi + mid + lo gives x back, times ``unscale`` (2^-64 below 2^-63,
+    else 1), each part with its 13 low bits clear and none subnormal, over
+    magnitudes 2^-126-2^127."""
     rng = np.random.default_rng(1)
-    x = torch.from_numpy((rng.normal(size=4096) * 2.0 ** rng.uniform(-60, 60, 4096)).astype(np.float32))
-    hi, mid, lo = P.tf32_split(x)
+    x = (rng.uniform(1, 2, 8192) * 2.0 ** rng.integers(-126, 128, 8192)).astype(np.float32)
+    x = torch.from_numpy(x * np.where(rng.random(8192) < 0.5, -1, 1).astype(np.float32))
+    hi, mid, lo, unscale = P.tf32_split(x)
     for part in (hi, mid, lo):
         assert int((part.view(torch.int32) & 0x1FFF).abs().max()) == 0
-    assert torch.equal((hi + mid) + lo, x)
+        assert not bool(((part != 0) & (part.abs() < torch.finfo(torch.float32).tiny)).any())
+    assert torch.equal(unscale, torch.where(x.abs() < 2.0**-63, 2.0**-64, 1.0))
+    assert torch.equal(((hi + mid) + lo) * unscale, x)
+
+
+def test_tf32_split_of_special_values():
+    """Zeros of both signs and subnormals split into three +0 parts; inf,
+    -inf and NaN pass whole into ``hi`` with +0 ``mid`` and ``lo``; f32's
+    largest values split without overflow; ``unscale`` is 1 for all of
+    them. One-pass TF32 (``tf32_stage``) keeps inf and NaN, gives +0 for
+    zeros and subnormals, and rounds a finite value past TF32's largest to
+    inf."""
+    x = torch.tensor([0.0, -0.0, 1e-45, -1e-45, 1e-39, -1.1754942e-38, np.inf, -np.inf, np.nan], dtype=torch.float32)
+    hi, mid, lo, unscale = P.tf32_split(x)
+    assert torch.equal(hi[:6].view(torch.int32), torch.zeros(6, dtype=torch.int32))
+    assert torch.equal(hi[6:8], x[6:8]) and bool(torch.isnan(hi[8]))
+    for part in (mid, lo):
+        assert torch.equal(part.view(torch.int32), torch.zeros(9, dtype=torch.int32))
+    assert torch.equal(unscale, torch.ones(9))
+    big = torch.from_numpy(np.array([0x7F7FFFFF, 0xFF7FFFFF, 0x7F7FF000], np.uint32).view(np.float32))
+    hi, mid, lo, unscale = P.tf32_split(big)
+    assert torch.equal((hi + mid) + lo, big) and bool(torch.isfinite(hi).all())
+    staged = P.tf32_stage(torch.cat([x, big]))
+    assert torch.equal(staged[:6].view(torch.int32), torch.zeros(6, dtype=torch.int32))
+    assert torch.equal(staged[6:8], x[6:8]) and bool(torch.isnan(staged[8]))
+    assert torch.equal(staged[9:], torch.tensor([np.inf, -np.inf, np.inf]))
 
 
 def test_lane_dma_matches_jax(scripts):

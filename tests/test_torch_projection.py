@@ -28,6 +28,7 @@ from gsplat_tpu_torch.ops import projection as tproj
 from gsplat_tpu_torch.ops.camera import CameraArrays, CameraParams
 
 from fixtures import orbit_camera, random_splat_arrays
+from torch_fixtures import one_intra_op_thread  # noqa: F401  (autouse)
 
 RTOL, ATOL = 1e-5, 1e-6
 # (seed, gaussians, orbit angle, width, height)

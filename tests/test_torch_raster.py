@@ -32,6 +32,7 @@ from gsplat_tpu_torch.kernels.raster_fwd import forward_tiles, forward_tiles_pla
 from gsplat_tpu_torch.render.tile_torch import image_to_tiles, tile_pixel_coords, tiles_to_image
 
 from fixtures import orbit_camera, random_splat_arrays
+from torch_fixtures import one_intra_op_thread  # noqa: F401  (autouse)
 
 JCFG = JRasterConfig(tile_size=16, chunk_size=8, pair_block=8, max_pairs=4096, use_pallas=True)
 CFG = RasterConfig(tile_size=16, chunk_size=8, pair_block=8, max_pairs=4096)

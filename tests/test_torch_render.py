@@ -27,6 +27,7 @@ from gsplat_tpu_torch.io.ply import load_splat_arrays, save_splat_arrays
 from gsplat_tpu_torch.io.scene import checkpoint_ply_path, read_points3d, read_scene
 
 from fixtures import make_camera, orbit_camera, random_splat_arrays, write_synthetic_scene
+from torch_fixtures import one_intra_op_thread  # noqa: F401  (autouse)
 
 RTOL, ATOL = 1e-5, 1e-6
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -52,6 +52,7 @@ from gsplat_tpu_torch.render import sliced
 from gsplat_tpu_torch.render.pipeline import render_traced
 
 from fixtures import make_camera, orbit_camera, random_splat_arrays
+from torch_fixtures import one_intra_op_thread  # noqa: F401  (autouse)
 
 RTOL, ATOL = 1e-5, 1e-6
 SMALL = dict(tile_size=16, chunk_size=8, pair_block=8, max_pairs=1 << 13)

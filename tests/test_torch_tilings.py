@@ -48,6 +48,7 @@ from gsplat_tpu_torch.ops import binning as B
 from gsplat_tpu_torch.ops.projection import Preprocessed
 
 from fixtures import orbit_camera, random_splat_arrays
+from torch_fixtures import one_intra_op_thread  # noqa: F401  (autouse)
 
 WIDTH, HEIGHT = 70, 50
 # (tile_size, chunk_size, pair_block)

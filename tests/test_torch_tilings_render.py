@@ -40,6 +40,7 @@ from gsplat_tpu_torch.kernels.raster import rasterize_tiles
 from gsplat_tpu_torch.kernels.raster_bwd import backward_tiles_plain
 
 from fixtures import orbit_camera, random_splat_arrays
+from torch_fixtures import one_intra_op_thread  # noqa: F401  (autouse)
 
 WIDTH, HEIGHT = 70, 50
 NAMES = ("means", "log_scales", "quats", "opacity_logits", "sh")

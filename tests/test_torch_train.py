@@ -34,6 +34,7 @@ from gsplat_tpu_torch.train.trainer import make_optimizer, means_lr, optimizer_s
 from gsplat_tpu_torch.utils import stages
 
 from fixtures import orbit_camera, random_splat_arrays
+from torch_fixtures import one_intra_op_thread  # noqa: F401  (autouse)
 
 SMALL = dict(tile_size=16, chunk_size=8, pair_block=8, max_pairs=1 << 12)
 NAMES = ("means", "log_scales", "quats", "opacity_logits", "sh")

@@ -1,13 +1,24 @@
-"""Inputs shared by the port's tests. Imports neither JAX nor the JAX
-package, so the card tests (``test_torch_gpu.py``) can use it where only
-PyTorch is installed."""
+"""Fixtures shared by the port's CPU tests. Imports neither JAX nor the JAX
+package.
 
-import numpy as np
+A test module takes a fixture by importing its name::
+
+    from torch_fixtures import one_intra_op_thread  # noqa: F401  (autouse)
+"""
+
+import pytest
+import torch
 
 
-def tf32_ties(rng: np.random.Generator, shape) -> np.ndarray:
-    """f32 values whose 13 bits below TF32's mantissa are exactly half a
-    unit (ties for the rounding), of both signs and exponents 2^-20-2^20."""
-    bits = rng.integers(0, 1 << 23, shape, dtype=np.int64) & ~0x1FFF | 0x1000
-    bits |= (rng.integers(127 - 20, 127 + 20, shape, dtype=np.int64) << 23) | (rng.integers(0, 2, shape) << 31)
-    return bits.astype(np.uint32).view(np.float32)
+@pytest.fixture(autouse=True, scope="module")
+def one_intra_op_thread():
+    """Runs the module's tests with PyTorch on one intra-op thread, and puts
+    the count back after. The test suite runs in several worker processes
+    on one machine; with each worker's PyTorch on every core the threads
+    oversubscribe the cores and a test that takes a fraction of a second
+    alone takes minutes (the spawned ranks of the mesh tests pin
+    themselves the same way)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)

@@ -20,6 +20,16 @@ line is one JSON object: at each tile, each kernel's bitwise check,
 median, quartiles and runs per side and the share of rounds the change
 wins; and the card's name and power limit. Both sides must keep the C
 entry points' signatures (``gsplat_raster_fwd``, ``gsplat_raster_bwd``).
+
+With ``--probes`` it compares ``probe_transpose.cu`` instead: both sides'
+``gsplat_probe_transpose_smem`` (``t1`` at ``[16, 128]``, ``t2`` at
+``[128, 16]``) and ``gsplat_probe_transpose_mma`` (TF32 and 3xTF32), held to each
+other at the TPU probe's inputs (``bitwise``, which decides the exit
+status) and at each special block of ``tools/probe_transpose.py``
+(``special_bitwise``, by name: NaN positions by ``isnan``, every other
+element by its bits; a change may mean to differ there), and timed with that tool's ``timed_rounds`` beside
+``x.t().contiguous()`` in ``--rounds`` rounds of rotating order, with
+``torch.profiler``'s kernel times (``profiler_ms``).
 """
 
 from __future__ import annotations
@@ -42,6 +52,7 @@ def main() -> int:
     parser.add_argument("--rounds", type=int, default=8)
     parser.add_argument("--tiles", default="16,32,64", help="tile edges, comma-separated, each 1 to 64")
     parser.add_argument("--out", default=None)
+    parser.add_argument("--probes", action="store_true", help="compare probe_transpose.cu's kernels instead")
     opts = parser.parse_args()
     sys.path.insert(0, HERE)
     import torch
@@ -58,9 +69,14 @@ def main() -> int:
     os.makedirs(out_dir, exist_ok=True)
     sides = {"parent": os.path.join(opts.parent, "gsplat_tpu_torch", "csrc"),
              "change": os.path.join(HERE, "gsplat_tpu_torch", "csrc")}
+    v, i = ctypes.c_void_p, ctypes.c_int
+    # source -> its C entry points (without the gsplat_ prefix) and their argument types
+    sources = ({"probe_transpose": {"probe_transpose_smem": [v, v, i, i, v], "probe_transpose_mma": [v, v, i, v]}}
+               if opts.probes else
+               {"raster_fwd": {"raster_fwd": list(RF._ARGTYPES)}, "raster_bwd": {"raster_bwd": list(RB._ARGTYPES)}})
     procs = []
     for side, csrc in sides.items():
-        for name in ("raster_fwd", "raster_bwd"):
+        for name in sources:
             lib = os.path.join(out_dir, f"{side}_{name}.so")
             cmd = [build.nvcc_path(), *build.NVCC_FLAGS, "-o", lib, os.path.join(csrc, f"{name}.cu")]
             procs.append((side, name, lib, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -71,12 +87,17 @@ def main() -> int:
         if proc.returncode != 0:
             raise RuntimeError(f"{side} {name}: nvcc exited {proc.returncode}\n{log}")
         resources[f"{side} {name}"] = cs.ptxas_by_kernel(log)
-        fn = getattr(ctypes.CDLL(lib), f"gsplat_{name}")
-        fn.argtypes = list((RF if name == "raster_fwd" else RB)._ARGTYPES)
-        fn.restype = ctypes.c_int
-        fns[side, name] = fn
+        dll = ctypes.CDLL(lib)
+        for entry, argtypes in sources[name].items():
+            fn = getattr(dll, f"gsplat_{entry}")
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+            fns[side, entry] = fn
     print(json.dumps({"resources": resources}), flush=True)
 
+    if opts.probes:
+        result = {"nvidia_smi": cs.nvidia_smi_line(), "rounds": opts.rounds, "probes": compare_probes(fns, opts.rounds)}
+        print(json.dumps(result), flush=True)
+        return 0 if all(p["bitwise"] for p in result["probes"].values()) else 1
     dev = torch.device("cuda")
     model = cs.build_scene(cs.NUM_GAUSSIANS, 0.0, dev)
     cam0 = cs.bench_camera(cs.WIDTH, cs.HEIGHT)
@@ -160,6 +181,49 @@ def compare(fns, model, cam0, tile_size, rounds) -> dict:
         p, c = times[name, "parent"], times[name, "change"]
         out[name].update({"parent": stats(p), "change": stats(c),
                           "change_wins": sum(x < y for x, y in zip(c, p)) / len(p)})
+    return out
+
+
+def compare_probes(fns, rounds) -> dict:
+    """Both sides' transpose probes: bitwise checks and times."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.join(HERE, "tools"))
+    import probe_transpose as PT
+
+    dev = torch.device("cuda")
+
+    def launch(side, entry, x, *args):  # on the current stream: the capture's, inside a graph capture
+        out = torch.empty(x.shape[::-1], dtype=x.dtype, device=dev)
+        err = fns[side, entry](x.data_ptr(), out.data_ptr(), *args, torch.cuda.current_stream(dev).cuda_stream)
+        if err:
+            raise RuntimeError(f"{side} {entry}: cudaError_t {err}")
+        return out
+
+    def tensor(seed, shape):
+        return torch.from_numpy(np.random.RandomState(seed).randn(*shape).astype(np.float32)).to(dev)
+
+    x, y = tensor(0, (16, 128)), tensor(1, (128, 16))
+    blocks = {name: torch.from_numpy(b).to(dev) for name, b in PT.special_blocks().items()}
+    bits = {**blocks, "bits": torch.from_numpy(PT.random_bits()).to(dev)}
+    probes = {  # name: (kernel of (side, x), the probe's input, the special inputs by name)
+        "t1": (lambda side, t: launch(side, "probe_transpose_smem", t, *t.shape), x, bits),
+        "t2": (lambda side, t: launch(side, "probe_transpose_smem", t, *t.shape), y,
+               {name: b.t().contiguous() for name, b in bits.items()}),
+        "mma_tf32": (lambda side, t: launch(side, "probe_transpose_mma", t, 0), x, blocks),
+        "mma_3xtf32": (lambda side, t: launch(side, "probe_transpose_mma", t, 1), x, blocks),
+    }
+    out = {}
+    for name, (run, t, special) in probes.items():
+        bitwise = bool(torch.equal(run("parent", t).view(torch.int32), run("change", t).view(torch.int32)))
+        special_bitwise = {n: PT.same_values(run("parent", b), run("change", b)) for n, b in special.items()}
+        fn = {"parent": lambda run=run, t=t: run("parent", t), "change": lambda run=run, t=t: run("change", t),
+              "library": lambda t=t: t.t().contiguous()}
+        times = PT.timed_rounds(fn, rounds)
+        for side, f in fn.items():
+            times[side]["profiler_ms"] = PT.profiler_ms(f)
+        out[name] = {"bitwise": bitwise, "special_bitwise": special_bitwise, **times}
     return out
 
 
