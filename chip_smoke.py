@@ -20,8 +20,9 @@ then runs fifteen phases, each printing one JSON line:
      plain version;
   4. timing: the forward kernel alone and the plain version at the phase-3
      shapes, with the kernel's bounds on this card, and one request taken
-     apart by the stages ``render`` marks, with its device-busy time and
-     host synchronisations;
+     apart by the program's tracer (``stage_breakdown``: each stage's
+     device and host ms, the host ms in sync spans and the counters), with
+     its device-busy time and host synchronisations;
   5. grad_small: the backward kernel and the gradient reduction against
      their plain versions on the phase-2 frame (early stop off and 1e-4),
      every element within tolerance, two runs bitwise equal, and autograd
@@ -32,7 +33,9 @@ then runs fifteen phases, each printing one JSON line:
      backward kernel against its plain version, then ``Trainer.fit`` for 3
      steps over the three phase-3 poses (finite losses, one forward and one
      backward launch per step, every parameter changed), the step's median
-     time, device-busy time and the stages ``train_step`` marks, the
+     time, device-busy time and the stages ``train_step`` marks (the
+     backward's as ``loss_bwd``, ``raster_bwd``, ``reduction`` and
+     ``preprocess_bwd``), the
      backward kernel's time against its bounds and the plain version's, the
      peak device memory, and the seconds the script has run so far;
   7. sliced_small: both carry kernels against their plain versions on every
@@ -600,34 +603,46 @@ def bound_fields(bound: dict, ms: float) -> dict:
 
 
 def stage_breakdown(fn, runs: int = 5) -> dict:
-    """The median CUDA-event milliseconds of each stage that one ``fn()``
-    marks (``gsplat_tpu_torch/utils/stages.py``), over ``runs`` calls; a
-    stage marked several times in one call (the depth-sliced path marks each
-    slice) counts the sum of its spans. A training step's backward is also
-    split at its marked stages: from its start to the first backward kernel
-    (the loss's and the image assembly's backward, and on the sliced path
-    the compact reduction's host sync: "loss_backward"), and from the last
-    reduction's end to its own (autograd through pack_features and the
-    preprocess: "preprocess_backward")."""
+    """One ``fn()`` taken apart by the program's tracer
+    (``gsplat_tpu_torch/utils/stages.py``), the median over ``runs`` calls
+    of each stage's CUDA-event milliseconds (``device_ms``) and host
+    milliseconds (``host_ms``), of the host milliseconds in sync spans
+    (``sync_wait_ms``) and of each counter's sum (``counters``). A stage
+    marked several times in one call (the depth-sliced path marks each
+    slice) counts the sum of its spans; a span inside one of its own name
+    is not counted again. A training step's backward shows as its own
+    stages: ``loss_bwd`` (the loss's and the image assembly's backward),
+    ``raster_bwd``, ``reduction`` and ``preprocess_bwd`` (autograd through
+    pack_features and the preprocess)."""
     import torch
 
     from gsplat_tpu_torch.utils.stages import record_stages
 
-    samples = {}
+    samples = {"device_ms": {}, "host_ms": {}, "counters": {}}
+    waits = []
     for _ in range(runs):
-        with record_stages() as spans:
+        with record_stages() as rec:
             fn()
         torch.cuda.synchronize()
-        ev = {}
-        for name, start, end in spans:
-            ev.setdefault(name, []).append((start, end))
-        ms = {name: sum(start.elapsed_time(end) for start, end in v) for name, v in ev.items()}
-        if "backward" in ev:
-            ms["loss_backward"] = ev["backward"][0][0].elapsed_time(ev["raster_bwd"][0][0])
-            ms["preprocess_backward"] = ev["reduction"][-1][1].elapsed_time(ev["backward"][0][1])
-        for name, value in ms.items():
-            samples.setdefault(name, []).append(value)
-    return {name: statistics.median(v) for name, v in samples.items()}
+        by_id = {s.id: s for s in rec.spans}
+        dev, host, counters = {}, {}, {}
+        for s in rec.spans:
+            up = by_id.get(s.parent)
+            while up is not None and up.name != s.name:
+                up = by_id.get(up.parent)
+            if up is not None:
+                continue
+            dev[s.name] = dev.get(s.name, 0.0) + s.start.elapsed_time(s.end)
+            host[s.name] = host.get(s.name, 0.0) + (s.host_end_ns - s.host_start_ns) / 1e6
+        for name, _, value in rec.counter_values():
+            counters[name] = counters.get(name, 0) + value
+        for key, got in (("device_ms", dev), ("host_ms", host), ("counters", counters)):
+            for name, value in got.items():
+                samples[key].setdefault(name, []).append(value)
+        waits.append(sum(s.host_end_ns - s.host_start_ns for s in rec.spans if s.sync) / 1e6)
+    out = {key: {name: statistics.median(v) for name, v in got.items()} for key, got in samples.items()}
+    out["sync_wait_ms"] = statistics.median(waits)
+    return out
 
 
 def request_breakdown(model, camera, cfg, runs: int = 5) -> dict:
@@ -641,7 +656,7 @@ def request_breakdown(model, camera, cfg, runs: int = 5) -> dict:
     from gsplat_tpu_torch.render.pipeline import preprocess
 
     w, h = camera.width, camera.height
-    out = {"stage_ms": stage_breakdown(lambda: gs.render(model, camera, cfg), runs),
+    out = {"stages": stage_breakdown(lambda: gs.render(model, camera, cfg), runs),
            "request_ms": cuda_ms(lambda: gs.render(model, camera, cfg), runs)}
     out["device_busy_ms"] = device_busy_ms(lambda: gs.render(model, camera, cfg))
     out["request_host_syncs"] = host_syncs(lambda: gs.render(model, camera, cfg))
@@ -1400,7 +1415,7 @@ def mesh_phase(cfg, frames, dense_capacity: int, dev, t_main: float, cli_root: s
                 demand = int(gs.binning_stats(model, cams[0], WIDTH, HEIGHT, cfg)["pair_demand"])
                 check(int(stats["max_shard_demand"]) == demand, f"1x1 shard demand {stats} != {demand}")
                 out["a_request_ms"] = [cuda_ms(lambda: sharded(model, cam), 1) for cam in cams[:3]]
-                out["a_request_stage_ms"] = stage_breakdown(lambda: sharded(model, cams[0]))
+                out["a_request_stages"] = stage_breakdown(lambda: sharded(model, cams[0]))
                 out["a_request_device_busy_ms"] = device_busy_ms(lambda: sharded(model, cams[0]))
                 del got, imgs, trans
             # The step from the same state as Trainer.train_step's.
@@ -1421,7 +1436,7 @@ def mesh_phase(cfg, frames, dense_capacity: int, dev, t_main: float, cli_root: s
                 check(bool(((a - b).abs() <= 1e-4 * b.abs() + 1e-5 * scale).all()), f"1x1 step {k} vs Trainer")
                 out["a_step_param_err"][k] = float((a - b).abs().max()) / scale
             out["a_step_ms"] = cuda_ms(lambda: step(m, optimizer, batch, targets), 5)
-            out["a_step_stage_ms"] = stage_breakdown(lambda: step(m, optimizer, batch, targets))
+            out["a_step_stages"] = stage_breakdown(lambda: step(m, optimizer, batch, targets))
             out["a_step_device_busy_ms"] = device_busy_ms(lambda: step(m, optimizer, batch, targets))
             # The SSIM-free step the gloo meshes are held to, with the f32
             # pair reduction and with the exact one.
@@ -2550,7 +2565,7 @@ def main() -> int:
         "full_frame_bwd": frame, "losses": [h["loss"] for h in history], "psnr": [h["psnr"] for h in history],
         "fit_s": fit_s, "launches": train_launches, "step_ms": step_ms, "step_device_busy_ms": step_busy_ms,
         "step_host_syncs": step_syncs,
-        "stage_ms": stages,
+        "stages": stages,
         "raster_bwd_ms": bwd_ms, "raster_bwd_plain_ms": bwd_plain_ms, "reduction_ms": reduction_ms,
         "raster_bwd_bound": bwd_bound,
         "max_memory_allocated": peak_bytes,
@@ -2644,12 +2659,12 @@ def main() -> int:
         real["sliced_vs_single_sort_max_abs_diff"] = diff
         real.update(first_slice_kernels(feat, rec, color, trans, -(-WIDTH // 32), rcfg, WIDTH, HEIGHT, seed=5))
         real["sliced_request"] = {
-            "stage_ms": stage_breakdown(lambda: gs.render(model, cam0, rcfg)),
+            "stages": stage_breakdown(lambda: gs.render(model, cam0, rcfg)),
             "request_ms": cuda_ms(lambda: gs.render(model, cam0, rcfg), 5),
             "device_busy_ms": device_busy_ms(lambda: gs.render(model, cam0, rcfg)),
             "host_syncs": host_syncs(lambda: gs.render(model, cam0, rcfg))}
         real["single_sort_request"] = {
-            "stage_ms": stage_breakdown(lambda: gs.render(model, cam0, ss_cfg)),
+            "stages": stage_breakdown(lambda: gs.render(model, cam0, ss_cfg)),
             "request_ms": cuda_ms(lambda: gs.render(model, cam0, ss_cfg), 5),
             "device_busy_ms": device_busy_ms(lambda: gs.render(model, cam0, ss_cfg)),
             "host_syncs": host_syncs(lambda: gs.render(model, cam0, ss_cfg))}
@@ -2685,7 +2700,7 @@ def main() -> int:
         "step_ms": cuda_ms(lambda: trainer.train_step(model, optimizer, cam0, target), 5),
         "device_busy_ms": device_busy_ms(lambda: trainer.train_step(model, optimizer, cam0, target)),
         "host_syncs": host_syncs(lambda: trainer.train_step(model, optimizer, cam0, target)),
-        "stage_ms": stage_breakdown(lambda: trainer.train_step(model, optimizer, cam0, target)),
+        "stages": stage_breakdown(lambda: trainer.train_step(model, optimizer, cam0, target)),
         "max_memory_allocated": torch.cuda.max_memory_allocated()}
     ss_trainer = gs.Trainer(raster=ss_cfg, train=trainer.train, show_progress=False)
     torch.cuda.reset_peak_memory_stats()
@@ -2694,7 +2709,7 @@ def main() -> int:
         "step_ms": cuda_ms(lambda: ss_trainer.train_step(model, optimizer, cam0, target), 5),
         "device_busy_ms": device_busy_ms(lambda: ss_trainer.train_step(model, optimizer, cam0, target)),
         "host_syncs": host_syncs(lambda: ss_trainer.train_step(model, optimizer, cam0, target)),
-        "stage_ms": stage_breakdown(lambda: ss_trainer.train_step(model, optimizer, cam0, target)),
+        "stages": stage_breakdown(lambda: ss_trainer.train_step(model, optimizer, cam0, target)),
         "max_memory_allocated": torch.cuda.max_memory_allocated()}
     real["elapsed_s"] = time.perf_counter() - t_main  # since main() began, the build included
     emit({"phase": "real_density", **real})

@@ -27,6 +27,7 @@ from torch.autograd.function import once_differentiable
 from gsplat_tpu_torch.config import RasterConfig
 from gsplat_tpu_torch.kernels.raster_bwd import backward_tiles, reduce_compacted, reduce_exact, reduce_pair_grads
 from gsplat_tpu_torch.kernels.raster_fwd import forward_tiles
+from gsplat_tpu_torch.utils import stages
 from gsplat_tpu_torch.utils.stages import stage
 
 
@@ -71,7 +72,9 @@ def _reduce(pair_grads, pair_gaussian, tile_start, gaussian_counts, blocks_done,
     blk = cfg.pair_block
     cap_blk = max(cfg.reduce_pairs // blk, 1)
     if gaussian_counts is not None and cfg.reduce_pairs > 0 and cap_blk < -(-pair_gaussian.shape[0] // blk):
-        total = int(blocks_done.sum())
+        with stages.sync("reduction_sync"):
+            total = int(blocks_done.sum())
+        stages.count("reduction", int(total <= cap_blk))
         if total <= cap_blk:
             return reduce_compacted(pair_grads, pair_gaussian, tile_start, blocks_done, total, blk, num_rows)
     return reduce_pair_grads(pair_grads, pair_gaussian, gaussian_counts, num_rows)
@@ -113,10 +116,11 @@ def rasterize_tiles(
     """
     with stage("raster_fwd"):
         if torch.is_grad_enabled() and feat.requires_grad:
-            return _RasterizeTiles.apply(
+            # While recording, the tiles' backward closes the span ``loss_bwd``.
+            return stages.closes_backward("loss_bwd", *_RasterizeTiles.apply(
                 feat, pair_gaussian, tile_start, tile_count, tile_ids, gaussian_counts,
                 n_tiles_x, cfg, width, height,
-            )
+            ))
         color, trans, _ = forward_tiles(
             feat, pair_gaussian, tile_start, tile_count, tile_ids, n_tiles_x, cfg, width, height
         )

@@ -31,6 +31,7 @@ from gsplat_tpu_torch.ops.projection import Preprocessed, preprocess_gaussians_f
 from gsplat_tpu_torch.ops.sh import SH_C0, sh_to_rgb
 from gsplat_tpu_torch.render.sliced import render_sliced_tiles
 from gsplat_tpu_torch.render.tile_torch import tiles_to_image
+from gsplat_tpu_torch.utils import stages
 from gsplat_tpu_torch.utils.stages import stage
 
 
@@ -43,12 +44,17 @@ def preprocess_traced(
     screen_offset=None,
 ) -> Preprocessed:
     """Per-gaussian preprocess for one camera (rasterize.py:353-425)."""
-    rgb = sh_to_rgb(model.means, model.sh, cam.cam_center, degree=cfg.sh_degree)
+    # While recording, the backward of what the preprocess reads from the
+    # model closes the span ``preprocess_bwd``.
+    means, sh, quats, scales, opacity = stages.closes_backward(
+        "preprocess_bwd", model.means, model.sh, model.quats, model.scales(), model.opacity()
+    )
+    rgb = sh_to_rgb(means, sh, cam.cam_center, degree=cfg.sh_degree)
     return preprocess_gaussians_from_params(
-        means=model.means,
-        scales=model.scales(),
-        quats=model.quats,
-        opacity=model.opacity(),
+        means=means,
+        scales=scales,
+        quats=quats,
+        opacity=opacity,
         rgb=rgb,
         w2c_t=cam.w2c_t,
         full_proj_t=cam.full_proj_t,
@@ -99,7 +105,7 @@ def render_with_preprocess(
     with stage("preprocess"):
         prep = preprocess_traced(model, cam, width, height, cfg, screen_offset)
     with stage("pack_features"):
-        feat = binning.pack_features(prep)
+        feat = stages.opens_backward("preprocess_bwd", binning.pack_features(prep))
     if cfg.slice_pairs > 0:
         color, trans = render_sliced_tiles(prep, feat, width, height, cfg)
     else:
@@ -107,6 +113,9 @@ def render_with_preprocess(
             bins = binning.bin_gaussians(
                 prep, width, height, cfg.tile_size, cfg.max_pairs, align=cfg.pair_block
             )
+        stages.count("pairs", bins.num_pairs)
+        stages.count("pair_demand", bins.pair_demand)
+        stages.count("overflow", bins.pair_demand, above=cfg.max_pairs)
         n_tiles_x = -(-width // cfg.tile_size)
         n_tiles_y = -(-height // cfg.tile_size)
         tile_ids = torch.arange(n_tiles_x * n_tiles_y, dtype=torch.int32, device=feat.device)

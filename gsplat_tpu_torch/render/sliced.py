@@ -64,6 +64,7 @@ from gsplat_tpu_torch.kernels.raster_fwd import forward_tiles_carry
 from gsplat_tpu_torch.ops import binning as B
 from gsplat_tpu_torch.ops.projection import Preprocessed
 from gsplat_tpu_torch.render.tile_torch import tile_pixel_coords
+from gsplat_tpu_torch.utils import stages
 from gsplat_tpu_torch.utils.stages import stage
 
 
@@ -150,6 +151,7 @@ def _bin_slice(d: DepthOrder, alive: torch.Tensor, n: int, ntxg: int, num_tiles:
     # The longest prefix that fits: g1 is the first position with cum > s_cap.
     g1 = torch.searchsorted(cum, torch.full((1,), s_cap, dtype=cum.dtype, device=dev), right=True)
     pairs_k = torch.where(g1 > 0, cum.gather(0, (g1 - 1).clamp(min=0)), 0)  # [1]: no host sync
+    stages.count("pairs", pairs_k)
     g1 = g1[0]
     cnt_k = torch.where(alive & (torch.arange(n, device=dev) < g1), d.count, 0)
     # Segment decode: each slot's owning gaussian (the first position whose
@@ -180,8 +182,13 @@ def _bin_slice(d: DepthOrder, alive: torch.Tensor, n: int, ntxg: int, num_tiles:
 
 
 def _forward_impl(feat: torch.Tensor, d: DepthOrder, width: int, height: int, cfg: RasterConfig):
-    """Run the slice loop. Returns (color [T, npix, 3], trans [T, npix],
-    SliceRecords)."""
+    """Run the slice loop, the stage ``slice_loop``. Returns (color
+    [T, npix, 3], trans [T, npix], SliceRecords)."""
+    with stage("slice_loop"):
+        return _slice_loop(feat, d, width, height, cfg)
+
+
+def _slice_loop(feat: torch.Tensor, d: DepthOrder, width: int, height: int, cfg: RasterConfig):
     dev = feat.device
     ts, es = cfg.tile_size, cfg.early_stop_transmittance
     ntxg, ntyg, num_tiles = _grid(width, height, ts)
@@ -216,14 +223,16 @@ def _forward_impl(feat: torch.Tensor, d: DepthOrder, width: int, height: int, cf
         rec.gb.append(g1)
         g0 = g1
         if len(rec.ids) == k_max:
+            stages.count("slice_budget_hit", 1)
             break
         more = g1 < n
         if es > 0.0:
             done = done | ((trans * inframe).amax(dim=1) < es)
             more = more & ~done.all()
-        with stage("slice_sync"):
+        with stages.sync("slice_sync"):
             go = bool(more)  # the one host sync of a slice
         syncs += 1
+    stages.count("slices", len(rec.ids))
     return color, trans, rec._replace(host_syncs=syncs)
 
 
@@ -239,8 +248,10 @@ class _RasterizeSliced(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, g_color, g_trans):
         feat, color, trans = ctx.saved_tensors
-        return _backward_impl(feat, color, trans, g_color.contiguous(), g_trans.contiguous(), ctx.rec,
-                              ctx.width, ctx.height, ctx.cfg), None, None, None, None
+        with stage("slice_loop_bwd"):
+            d_feat = _backward_impl(feat, color, trans, g_color.contiguous(), g_trans.contiguous(), ctx.rec,
+                                    ctx.width, ctx.height, ctx.cfg)
+        return d_feat, None, None, None, None
 
 
 def _backward_impl(feat, color, trans, g_color, g_trans, rec: SliceRecords, width, height, cfg: RasterConfig):
@@ -253,8 +264,9 @@ def _backward_impl(feat, color, trans, g_color, g_trans, rec: SliceRecords, widt
     r_blk = cfg.reduce_pairs // cfg.pair_block
     per_slice = None
     if r_blk > 0 and rec.bdone:
-        with stage("slice_sync"):
+        with stages.sync("slice_sync"):
             per_slice = torch.stack([b.sum() for b in rec.bdone]).tolist()  # blocks each slice walks
+        stages.count("reduction", int(sum(per_slice) <= r_blk))
         if sum(per_slice) > r_blk:
             per_slice = None  # overflow: the per-slice reduction
     carry = walk_state(color, trans, g_color, g_trans)
@@ -298,6 +310,7 @@ def render_sliced_tiles(
     with stage("depth_sort"):
         d = _prepare_sliced(prep, cfg.tile_size, ntxg, ntyg)
     if torch.is_grad_enabled() and feat.requires_grad:
-        return _RasterizeSliced.apply(feat, d, width, height, cfg)
+        # While recording, the tiles' backward closes the span ``loss_bwd``.
+        return stages.closes_backward("loss_bwd", *_RasterizeSliced.apply(feat, d, width, height, cfg))
     color, trans, _ = _forward_impl(feat, d, width, height, cfg)
     return color, trans

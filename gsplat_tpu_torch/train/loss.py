@@ -15,6 +15,9 @@ import contextlib
 import torch
 import torch.nn.functional as F
 
+from gsplat_tpu_torch.utils import stages
+from gsplat_tpu_torch.utils.stages import stage
+
 _SSIM_WINDOW = 11
 _SSIM_SIGMA = 1.5
 _C1 = 0.01 ** 2
@@ -98,7 +101,11 @@ def ssim(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
 
 
 def rgb_loss(pred: torch.Tensor, target: torch.Tensor, ssim_weight: float) -> torch.Tensor:
-    """(1-w) * L1 + w * (1 - SSIM): the 3DGS training loss."""
-    if ssim_weight == 0.0:
-        return l1_loss(pred, target)
-    return (1.0 - ssim_weight) * l1_loss(pred, target) + ssim_weight * (1.0 - ssim(pred, target))
+    """(1-w) * L1 + w * (1 - SSIM): the 3DGS training loss, the stage
+    ``loss``. While recording, its backward opens the span ``loss_bwd``."""
+    with stage("loss"):
+        if ssim_weight == 0.0:
+            loss = l1_loss(pred, target)
+        else:
+            loss = (1.0 - ssim_weight) * l1_loss(pred, target) + ssim_weight * (1.0 - ssim(pred, target))
+    return stages.opens_backward("loss_bwd", loss)

@@ -26,6 +26,7 @@ from gsplat_tpu_torch.render.pipeline import binning_stats, render_with_preproce
 from gsplat_tpu_torch.train import checkpoint as CK
 from gsplat_tpu_torch.train import densify as D
 from gsplat_tpu_torch.train.loss import psnr, rgb_loss
+from gsplat_tpu_torch.utils import stages
 from gsplat_tpu_torch.utils.logging import get_logger
 from gsplat_tpu_torch.utils.progress import progress
 from gsplat_tpu_torch.utils.stages import stage
@@ -208,7 +209,8 @@ class FitLoop:
             if self.train.sh_warmup_every > 0:
                 deg = min(step // self.train.sh_warmup_every, deg)
             bg = background(self.train, self._bg_rng, dev)
-            metrics, samples = self._train_views(model, optimizer, views, idx, bg, deg, dc is not None)
+            with stages.step(step):
+                metrics, samples = self._train_views(model, optimizer, views, idx, bg, deg, dc is not None)
             if dc is not None:
                 for vs_grad, width, height, radii in samples:
                     dstate = D.accumulate(dstate, vs_grad, width, height, radii)
@@ -266,6 +268,7 @@ class Trainer(FitLoop):
     def __post_init__(self):
         check_background(self.train)
         self._bg_rng = np.random.default_rng(0)
+        self._steps_taken = 0  # train_step's step id
 
     def init_state(self, model: GaussianModel) -> torch.optim.Adam:
         """The optimizer over ``model``'s parameters (the loop's state)."""
@@ -282,8 +285,7 @@ class Trainer(FitLoop):
         with stage("forward"):
             image, trans, prep = render_with_preprocess(model, cam, width, height, cfg, screen_offset)
             image = image + trans[..., None] * bg
-        with stage("loss"):
-            loss = rgb_loss(image, target, self.train.ssim_weight)
+        loss = rgb_loss(image, target, self.train.ssim_weight)
         with stage("backward"):
             loss.backward()
         with stage("optimizer"):
@@ -317,10 +319,12 @@ class Trainer(FitLoop):
         before the update) as 0-d tensors on the model's device, without a
         host synchronisation."""
         dev = model.means.device
-        with stage("camera"):
-            cam = CameraArrays.from_params(camera, dtype=model.means.dtype, device=dev)
-            bg = self.draw_background(dev)
-        return self._step(model, optimizer, cam, target, bg, camera.width, camera.height, self.raster)[0]
+        self._steps_taken += 1
+        with stages.step(self._steps_taken - 1):
+            with stage("camera"):
+                cam = CameraArrays.from_params(camera, dtype=model.means.dtype, device=dev)
+                bg = self.draw_background(dev)
+            return self._step(model, optimizer, cam, target, bg, camera.width, camera.height, self.raster)[0]
 
     def check_capacity(self, model: GaussianModel, camera: CameraParams) -> RasterConfig:
         """Warn on pair-buffer overflow for this (model, view); returns the

@@ -1,0 +1,9 @@
+"""Per request, host ms in the program's sync spans (``slice_sync``,
+``reduction_sync``: the host's waits on the device), in the light window
+(``splatbench/hosttrace.py``)."""
+
+from splatbench import hosttrace
+
+
+def read(run):
+    return hosttrace.read_light(run, "render", hosttrace.sync_wait_ms)

@@ -819,3 +819,47 @@ def test_orientation_kernels_on_card(device, orientation):
             if features == "sparse":
                 trans = orientation_test.transmittance
                 assert torch.equal(trans(got, orientation), trans(want, orientation))
+
+
+@pytest.mark.parametrize("sliced", [False, True])
+def test_tracer_on_card(device, sliced):
+    """The tracer on the card: every span has its CUDA events; the
+    backward's spans run on autograd's thread, the first of them with the
+    caller's span as parent, all with the step id; counters read after the
+    fence; the same gradients as with the tracer off."""
+    import threading
+
+    from gsplat_tpu_torch.utils import stages
+
+    model, camera = scene(device)
+    cfg = dataclasses.replace(CFG, slice_pairs=64 if sliced else 0, reduce_pairs=1024,
+                              early_stop_transmittance=1e-4)
+
+    def step():
+        image, _ = tgs.render(model, camera, cfg)
+        loss = tgs.rgb_loss(image, torch.full_like(image, 0.25), 0.2)
+        with stages.stage("backward"):
+            return torch.autograd.grad(loss, list(model.parameters()))
+
+    want = step()
+    with stages.record_stages() as rec:
+        with stages.step(5):
+            got = step()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    by = {}
+    for s in rec.spans:
+        by.setdefault(s.name, []).append(s)
+        assert s.step == 5 and s.start.elapsed_time(s.end) >= 0.0
+    (back,) = by["backward"]
+    main = threading.get_native_id()
+    assert back.thread == main
+    for name in ("loss_bwd", "raster_bwd", "reduction", "preprocess_bwd"):
+        assert by[name][0].thread != main, name
+    assert by["loss_bwd"][0].parent == back.id
+    assert by["loss_bwd"][0].host_end_ns <= by["raster_bwd"][0].host_start_ns
+    counts = {}
+    for name, step_id, value in rec.counter_values():
+        counts[name] = counts.get(name, 0) + value
+    assert counts["host_syncs"] == len([s for s in rec.spans if s.sync]) >= 1
+    assert counts["pairs"] > 0 and ("slices" in counts) == sliced

@@ -14,6 +14,7 @@
 
 import dataclasses
 import logging
+import threading
 
 import jax
 import jax.numpy as jnp
@@ -213,8 +214,11 @@ def test_invalid_background_is_refused():
 
 def test_step_stages_are_marked(monkeypatch):
     """``record_stages`` sees every stage of one real ``train_step``, each
-    inner stage inside the one around it, and nothing outside it. (A
-    stand-in for ``torch.cuda.Event`` that notes the order of its records.)"""
+    inner stage inside the one around it, and nothing outside it: the
+    backward's own stages (``loss_bwd``, ``preprocess_bwd``) under
+    ``backward``, every span with the trainer's step id and the calling
+    thread (on the CPU autograd runs the backward there). (A stand-in for
+    ``torch.cuda.Event`` that notes the order of its records.)"""
     ticks = []
 
     class Event:
@@ -226,6 +230,7 @@ def test_step_stages_are_marked(monkeypatch):
             ticks.append(self)
 
     monkeypatch.setattr(torch.cuda, "Event", Event)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     arrays, jcams, targets = _views()
     trainer = tgs.Trainer(raster=tgs.RasterConfig(**SMALL), train=tgs.TrainConfig(), show_progress=False)
     model = tgs.GaussianModel.from_arrays(arrays, device="cpu")
@@ -237,12 +242,22 @@ def test_step_stages_are_marked(monkeypatch):
         trainer.train_step(*step)
     assert [name for name, _, _ in spans] == [
         "camera", "preprocess", "pack_features", "binning", "raster_fwd", "tiles_to_image", "forward",
-        "loss", "raster_bwd", "reduction", "backward", "optimizer",
+        "loss", "loss_bwd", "raster_bwd", "reduction", "preprocess_bwd", "backward", "optimizer",
     ]
     at = {name: (start.at, end.at) for name, start, end in spans}
     for inner, outer in (("preprocess", "forward"), ("raster_fwd", "forward"), ("raster_bwd", "backward"),
-                         ("reduction", "backward")):
+                         ("reduction", "backward"), ("loss_bwd", "backward"), ("preprocess_bwd", "backward")):
         assert at[outer][0] < at[inner][0] < at[inner][1] < at[outer][1], (inner, outer)
+    assert at["loss_bwd"][1] < at["raster_bwd"][0] and at["reduction"][1] < at["preprocess_bwd"][0]
+    by_id = {s.id: s for s in spans.spans}
+    parents = {s.name: by_id[s.parent].name for s in spans.spans if s.parent is not None}
+    assert parents == {
+        "preprocess": "forward", "pack_features": "forward", "binning": "forward", "raster_fwd": "forward",
+        "tiles_to_image": "forward", "loss_bwd": "backward", "raster_bwd": "backward", "reduction": "backward",
+        "preprocess_bwd": "backward",
+    }
+    assert {s.step for s in spans.spans} == {1}  # the trainer's second step
+    assert {s.thread for s in spans.spans} == {threading.get_native_id()}
     assert len(ticks) == 2 * len(spans)
     trainer.train_step(*step)
     assert len(ticks) == 2 * len(spans)
