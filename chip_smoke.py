@@ -4,7 +4,7 @@
 Usage: ``python3 chip_smoke.py`` from the repository root, on a machine with
 one NVIDIA H100 (or another sm_90a card) and the CUDA toolkit. It builds the
 port's CUDA kernels from ``gsplat_tpu_torch/csrc`` (into ``build/kernels``),
-then runs fifteen phases, each printing one JSON line:
+then runs sixteen phases, each printing one JSON line:
 
   1. device: the card's name and power limit, torch/CUDA versions, kernel
      build time, the compiler's register report and each kernel's
@@ -15,9 +15,9 @@ then runs fifteen phases, each printing one JSON line:
   3. served: the bench scene (1M gaussians, 1920x1080, SH degree 3,
      tile 32, chunk 32, pair block 128, capacity 1.5x the measured demand)
      answers three render requests through ``gsplat_tpu_torch.render``;
-     the forward kernel's launch count over those requests must be exactly
-     3 and the backward kernel's 0, and one full frame is held against the
-     plain version;
+     the forward kernel's and the preprocess kernel's launch counts over
+     those requests must be exactly 3 and the backward kernel's 0, and one
+     full frame is held against the plain version;
   4. timing: the forward kernel alone and the plain version at the phase-3
      shapes, with the kernel's bounds on this card, and one request taken
      apart by the program's tracer (``stage_breakdown``: each stage's
@@ -155,6 +155,16 @@ then runs fifteen phases, each printing one JSON line:
      and quartiles of alternating rounds; orientation: ms and ns a
      pair-pixel at each feature set beside the one-SM bounds) go to the
      ``kernels`` line.
+ 16. preprocess: the preprocess kernel (``preprocess_phase``,
+     ``kernels/preprocess.py``) at the headline (1M) and dense (5M) scenes
+     at the eight ``orbit8`` poses of ``splatbench/traffic/render.json``:
+     every output but rgb bitwise the eager path's, rgb within
+     ``RGB_ATOL`` (its sums in another order); its device ms in queued
+     rounds and from the profiler beside its bytes bound, the eager path's
+     ms, the device operations of a grad-free preprocess (at most 4, the
+     nodes of its CUDA graph capture) and of the eager one (the
+     profiler's); a dense request's and training step's stages, with
+     ``preprocess_kernel`` counted 1 and 0.
 
 A kernel's bound counts the work its inputs need. ``bound_ms`` charges the
 gate (and its expf) only at the walked pair-pixels inside each pair's
@@ -176,7 +186,9 @@ It then prints ``nvidia-smi``'s name/power-limit line, the ``kernels`` JSON
 line (each compositor's launches on the main path and in phases 9, 10, 11,
 12, 13 and 14, phase 11's summed over every rank and phase 13's over model
 mode and the launch run, and its times and bounds at phase 12's tilings;
-then each probe kernel's launches, times and bounds from phase 15) and,
+then each probe kernel's launches, times and bounds from phase 15, and
+the preprocess kernel's launches on the main path (phase 3) and over
+phase 16, with its times and bounds from phase 16) and,
 last, ``{"ok": true, "device": {...}}``. Any failed check raises,
 so the script exits non-zero and prints no result; it also refuses to run
 without a CUDA device or without the ``gsplat_tpu_torch`` package beside it.
@@ -2315,6 +2327,196 @@ def probes_phase(dev, t_main: float):
             "script_s_so_far": time.perf_counter() - t_main}, rows
 
 
+# Phase 16: the preprocess kernel at the benchmark's pose set orbit8, at the
+# headline (1M) and dense (5M) scenes.
+PREP_TRAFFIC = os.path.join(HERE, "splatbench", "traffic", "render.json")
+PREP_ITERS, PREP_ROUNDS = 10, 9  # calls a graph, rounds of alternating replays
+PREP_SLEEP_CYCLES = 2_000_000  # about 1 ms of device spin before each replay
+PREP_PROFILE_CALLS = 50
+CU_GRAPH_DEVICE_NODES = (0, 1, 2)  # CUgraphNodeType: kernel, memcpy, memset
+
+
+def orbit8_poses():
+    """(yaw, shift) of each pose the benchmark's render traffic serves,
+    read through its own generator (``splatbench/scene.py::poses``)."""
+    from splatbench.scene import poses
+
+    with open(PREP_TRAFFIC) as f:
+        traffic = json.load(f)
+    check(traffic["poses"]["name"] == "orbit8", f"{PREP_TRAFFIC} serves orbit8")
+    return poses(traffic)
+
+
+def graph_ops(fn) -> int:
+    """Device operations (kernels, copies, fills) one ``fn()`` launches: the
+    kernel, memcpy and memset nodes of its CUDA graph capture, counted by
+    the driver (``cuGraphGetNodes``), which sees every launch on the
+    captured stream, the port's own kernels included. ``fn`` runs once
+    before, uncaptured, and must not synchronise the host."""
+    import ctypes
+
+    import torch
+
+    driver = ctypes.CDLL("libcuda.so.1")
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        fn()
+    raw = ctypes.c_void_p(int(graph.raw_cuda_graph()))
+    count = ctypes.c_size_t(0)
+    check(driver.cuGraphGetNodes(raw, None, ctypes.byref(count)) == 0, "cuGraphGetNodes counts the nodes")
+    nodes = (ctypes.c_void_p * count.value)()
+    check(driver.cuGraphGetNodes(raw, nodes, ctypes.byref(count)) == 0, "cuGraphGetNodes lists the nodes")
+    ops, kind = 0, ctypes.c_int(0)
+    for node in nodes:
+        check(driver.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) == 0, "cuGraphNodeGetType")
+        ops += kind.value in CU_GRAPH_DEVICE_NODES
+    graph.reset()
+    return ops
+
+
+def profiled_ops(fn):
+    """Device operations one ``fn()`` launches as ``torch.profiler`` records
+    them (None where it records none). Late in a long process the profiler
+    has been seen to miss the first 28 device operations of a session, so
+    this is a lower bound."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops = sum(e.count for e in prof.key_averages() if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA)
+    return ops or None
+
+
+def profiled_kernel_ms(fn, name: str):
+    """(mean device ms of one launch of the kernels whose name holds
+    ``name``, launches recorded) over one ``fn()``, from ``torch.profiler``
+    ((None, 0) where it records none of them). A mean over the launches it
+    recorded, so one that misses some still reads the kernel's time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages()
+            if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA and name in e.key]
+    count = sum(e.count for e in hits)
+    busy_us = sum(getattr(e, "self_device_time_total", 0.0) for e in hits)
+    return (busy_us / 1e3 / count if count else None), count
+
+
+def preprocess_phase(dev, t_main: float):
+    """Phase 16: the preprocess kernel (``kernels/preprocess.py``,
+    ``csrc/preprocess.cu``) at the headline and the dense scene. At every
+    orbit8 pose (``orbit8_poses``), every output but rgb bitwise the eager path's and rgb
+    within ``kernels/preprocess.py``'s ``RGB_ATOL``. At the first pose: the
+    kernel's device ms in queued rounds (graphs of ``PREP_ITERS`` calls
+    replayed after a device spin, median and quartiles) and from the
+    profiler (a mean over the launches it recorded), beside its bytes bound;
+    the eager path's ms (CUDA events) and profiler ms; the device operations
+    of a grad-free request's preprocess (``graph_ops``: the kernel and the
+    two activations, at most 4, and one launch of the wrapper) and of the
+    eager path (``profiled_ops``); a grad-free request's and a training
+    step's stages and ``preprocess_kernel`` counter (1 and 0). Returns (the
+    phase's record, the kernel's launches over the phase)."""
+    import torch
+
+    import gsplat_tpu_torch as gs
+    from gsplat_tpu_torch.kernels import preprocess as kp
+    from gsplat_tpu_torch.render.pipeline import preprocess_traced
+
+    t0 = time.perf_counter()
+    kp.preprocess_forward.launches = 0
+    orbit8 = orbit8_poses()
+    out = {}
+    for name, n, shift in (("headline_1m", NUM_GAUSSIANS, 0.0), ("dense_5m", REAL_N, REAL_SHIFT)):
+        model = build_scene(n, shift, dev)
+        rec = {"num_gaussians": n, "poses": len(orbit8), "rgb_max_abs_err": []}
+        with torch.inference_mode():
+            inputs = (model.means, model.sh, model.quats, model.scales(), model.opacity())
+            cams = [gs.CameraArrays.from_params(bench_camera(WIDTH, HEIGHT, yaw, sh), device=dev) for yaw, sh in orbit8]
+            for i, cam in enumerate(cams):
+                got = kp.preprocess_forward(*inputs, cam, WIDTH, HEIGHT, 3, True)
+                torch.cuda.synchronize()
+                want = kp.preprocess_plain(*inputs, cam, WIDTH, HEIGHT, 3, True)
+                for field in want._fields:
+                    if field != "rgb":
+                        check(kp.same_bits(getattr(got, field), getattr(want, field)),
+                              f"{name} pose {i}: preprocess {field} bitwise the eager path's")
+                err = float((got.rgb - want.rgb).abs().max())
+                check(err <= kp.RGB_ATOL, f"{name} pose {i}: rgb within {kp.RGB_ATOL} of the eager path's: {err}")
+                rec["rgb_max_abs_err"].append(err)
+                del got, want
+            cam = cams[0]
+
+            def kernel():
+                return kp.preprocess_forward(*inputs, cam, WIDTH, HEIGHT, 3, True)
+
+            def eager():
+                return kp.preprocess_plain(*inputs, cam, WIDTH, HEIGHT, 3, True)
+
+            graph = capture_graph(kernel, PREP_ITERS, warmup=3)
+            rounds = sorted(replay_ms(graph, PREP_ITERS, PREP_SLEEP_CYCLES) for _ in range(PREP_ROUNDS))
+            q1, med, q3 = statistics.quantiles(rounds, n=4)
+            del graph
+            nbytes = kp.bytes_moved(n, 3)
+            bound_ms = nbytes / PEAK_HBM_BYTES * 1e3
+            prof_ms, prof_launches = profiled_kernel_ms(lambda: [kernel() for _ in range(PREP_PROFILE_CALLS)],
+                                                        "preprocess_kernel")
+            eager_busy = device_busy_ms(eager)
+            before = kp.preprocess_forward.launches
+            ops = graph_ops(lambda: preprocess_traced(model, cam, WIDTH, HEIGHT, gs.RasterConfig()))
+            wrapper_launches = kp.preprocess_forward.launches - before
+            check(1 <= ops <= 4, f"{name}: a grad-free preprocess launches {ops} device operations")
+            check(wrapper_launches == 2, f"{name}: the preprocess kernel launched once uncaptured, once captured: "
+                                         f"{wrapper_launches}")
+            rec.update({
+                "kernel_ms": med, "kernel_ms_quartiles": [q1, q3],
+                "kernel_profiler_ms": prof_ms, "kernel_profiler_launches": prof_launches,
+                "bytes": nbytes, "bound_ms": bound_ms, "share_of_bound": bound_ms / med,
+                "eager_ms": cuda_ms(eager, 5, warmup=1), "eager_profiler_ms": eager_busy,
+                "request_preprocess_ops": ops,
+                "eager_preprocess_ops": profiled_ops(lambda: kp.preprocess_plain(
+                    model.means, model.sh, model.quats, model.scales(), model.opacity(), cam, WIDTH, HEIGHT, 3, True)),
+            })
+        if name == "dense_5m":
+            probe = gs.RasterConfig(tile_size=32, chunk_size=32, max_pairs=1 << 20)
+            with torch.inference_mode():
+                demand = int(gs.binning_stats(model, cam, WIDTH, HEIGHT, probe)["pair_demand"])
+            rcfg = gs.RasterConfig(tile_size=32, chunk_size=32, pair_block=128,
+                                   max_pairs=max(int(demand * 1.1) // 128 * 128, CAPACITY_FLOOR), sh_degree=3,
+                                   early_stop_transmittance=1e-4, slice_pairs=REAL_SLICE, reduce_pairs=REAL_REDUCE)
+            camera = bench_camera(WIDTH, HEIGHT, *orbit8[0])
+            target = torch.full((HEIGHT, WIDTH, 3), 0.25, device=dev)
+
+            def request():
+                with torch.no_grad():
+                    return gs.render(model, camera, rcfg)
+
+            def step():
+                image, _ = gs.render(model, camera, rcfg)
+                return torch.autograd.grad(gs.rgb_loss(image, target, 0.2), list(model.parameters()))
+
+            request()
+            rec["request"] = stage_breakdown(request)
+            rec["request_ms"] = cuda_ms(request, 5)
+            step()  # warm-up: SSIM's convolutions, the backward's buffers
+            rec["step"] = stage_breakdown(step, runs=2)
+            check(rec["request"]["counters"].get("preprocess_kernel") == 1, "a request counts preprocess_kernel 1")
+            check(rec["step"]["counters"].get("preprocess_kernel") == 0, "a training step counts preprocess_kernel 0")
+            del target
+        out[name] = rec
+        del model, inputs, cams
+        torch.cuda.empty_cache()
+    launches = kp.preprocess_forward.launches
+    out.update({"launches": launches, "phase_s": time.perf_counter() - t0, "elapsed_s": time.perf_counter() - t_main})
+    return out, launches
+
+
 def main() -> int:
     t_main = time.perf_counter()
     import torch
@@ -2333,6 +2535,7 @@ def main() -> int:
 
     import gsplat_tpu_torch as gs
     from gsplat_tpu_torch.kernels import build
+    from gsplat_tpu_torch.kernels.preprocess import preprocess_forward
     from gsplat_tpu_torch.kernels.raster_bwd import (
         backward_tiles, backward_tiles_carry, backward_tiles_plain, reduce_pair_grads,
     )
@@ -2398,7 +2601,7 @@ def main() -> int:
         gs.render(model, cam0, cfg)  # warm-up: allocator and library kernels
         torch.cuda.synchronize()
         requests, frames = [], []
-        forward_tiles.launches = backward_tiles.launches = 0
+        forward_tiles.launches = backward_tiles.launches = preprocess_forward.launches = 0
         for name, yaw in poses:
             camera = bench_camera(WIDTH, HEIGHT, yaw)
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -2413,6 +2616,8 @@ def main() -> int:
         launches = forward_tiles.launches
         check(launches == len(poses), f"kernel launches over the requests: {launches} != {len(poses)}")
         check(backward_tiles.launches == 0, "no backward launch while serving")
+        prep_launches = preprocess_forward.launches
+        check(prep_launches == len(poses), f"preprocess kernel launches over the requests: {prep_launches} != {len(poses)}")
         for req, (name, yaw), (img, trans) in zip(requests, poses, frames):
             stats = gs.binning_stats(
                 model, gs.CameraArrays.from_params(bench_camera(WIDTH, HEIGHT, yaw), device=dev), WIDTH, HEIGHT, cfg)
@@ -2445,7 +2650,7 @@ def main() -> int:
     emit({
         "phase": "served", "num_gaussians": NUM_GAUSSIANS, "width": WIDTH, "height": HEIGHT,
         "pair_demand_probe": demand, "pairs_per_gaussian": demand / NUM_GAUSSIANS, "capacity": capacity,
-        "requests": requests, "kernel_launches": launches, "pixels": n_pix,
+        "requests": requests, "kernel_launches": launches, "preprocess_launches": prep_launches, "pixels": n_pix,
         "within_1e-4": within_1e4, "within_5e-3": within_5e3, "max_abs_err": frame_err,
     })
     served_frames = frames  # phase 11's reference
@@ -2745,6 +2950,10 @@ def main() -> int:
     probes, probe_rows = probes_phase(dev, t_main)
     emit({"phase": "probes", **probes})
 
+    # -- phase 16: the preprocess kernel --
+    prep, prep_phase_launches = preprocess_phase(dev, t_main)
+    emit({"phase": "preprocess", **prep})
+
     def at_tiles(kernel):
         """A kernel's times and bounds at each tiling of phase 12 (a)."""
         rows = {}
@@ -2798,6 +3007,16 @@ def main() -> int:
             **bound_fields(real["backward_carry_bound"], real["backward_carry_ms"]),
         },
         *probe_rows,
+        {
+            "name": "preprocess", "route": "cuda", "source": "gsplat_tpu_torch/csrc/preprocess.cu",
+            "replaces": None, "launches": prep_launches, "preprocess_phase_launches": prep_phase_launches,
+            **{name: {k: prep[name][k] for k in ("kernel_ms", "kernel_ms_quartiles", "kernel_profiler_ms",
+                                                 "kernel_profiler_launches", "bound_ms",
+                                                 "share_of_bound", "eager_ms", "eager_profiler_ms",
+                                                 "request_preprocess_ops", "eager_preprocess_ops")}
+               for name in ("headline_1m", "dense_5m")},
+            "library_ms": None,
+        },
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

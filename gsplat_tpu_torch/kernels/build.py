@@ -25,7 +25,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 
 # Kernel name -> source file under csrc/.
 SOURCES = {
-    "raster_fwd": "raster_fwd.cu", "raster_bwd": "raster_bwd.cu",
+    "raster_fwd": "raster_fwd.cu", "raster_bwd": "raster_bwd.cu", "preprocess": "preprocess.cu",
     # The TPU probes' counterparts (kernels/probes.py).
     "probe_transpose": "probe_transpose.cu", "probe_lane_dma": "probe_lane_dma.cu",
     "probe_orientation": "probe_orientation.cu",

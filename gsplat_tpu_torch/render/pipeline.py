@@ -22,13 +22,14 @@ from typing import Tuple
 import torch
 
 from gsplat_tpu_torch.config import RasterConfig
+from gsplat_tpu_torch.kernels.preprocess import preprocess_forward, preprocess_plain, takes_kernel
 from gsplat_tpu_torch.kernels.raster import rasterize_tiles
 from gsplat_tpu_torch.models.gaussians import GaussianModel
 from gsplat_tpu_torch.ops import binning
 from gsplat_tpu_torch.ops.camera import CameraArrays, CameraParams
 from gsplat_tpu_torch.ops.compositing import render_oracle
-from gsplat_tpu_torch.ops.projection import Preprocessed, preprocess_gaussians_from_params
-from gsplat_tpu_torch.ops.sh import SH_C0, sh_to_rgb
+from gsplat_tpu_torch.ops.projection import Preprocessed
+from gsplat_tpu_torch.ops.sh import SH_C0
 from gsplat_tpu_torch.render.sliced import render_sliced_tiles
 from gsplat_tpu_torch.render.tile_torch import tiles_to_image
 from gsplat_tpu_torch.utils import stages
@@ -43,30 +44,21 @@ def preprocess_traced(
     cfg: RasterConfig,
     screen_offset=None,
 ) -> Preprocessed:
-    """Per-gaussian preprocess for one camera (rasterize.py:353-425)."""
+    """Per-gaussian preprocess for one camera (rasterize.py:353-425): the
+    kernel of ``kernels/preprocess.py`` where no gradient is taken
+    (``takes_kernel``), the eager autograd path otherwise. Counts
+    ``preprocess_kernel`` 1 or 0 for the tracer."""
     # While recording, the backward of what the preprocess reads from the
     # model closes the span ``preprocess_bwd``.
-    means, sh, quats, scales, opacity = stages.closes_backward(
+    inputs = stages.closes_backward(
         "preprocess_bwd", model.means, model.sh, model.quats, model.scales(), model.opacity()
     )
-    rgb = sh_to_rgb(means, sh, cam.cam_center, degree=cfg.sh_degree)
-    return preprocess_gaussians_from_params(
-        means=means,
-        scales=scales,
-        quats=quats,
-        opacity=opacity,
-        rgb=rgb,
-        w2c_t=cam.w2c_t,
-        full_proj_t=cam.full_proj_t,
-        tan_fov_x=cam.tan_fov[0],
-        tan_fov_y=cam.tan_fov[1],
-        focal_x=cam.focal[0],
-        focal_y=cam.focal[1],
-        width=width,
-        height=height,
-        strict_parity=cfg.strict_parity,
-        screen_offset=screen_offset,
-    )
+    args = (*inputs, cam, width, height, cfg.sh_degree, cfg.strict_parity)
+    if takes_kernel((*inputs, *cam), screen_offset):
+        stages.count("preprocess_kernel", 1)
+        return preprocess_forward(*args)
+    stages.count("preprocess_kernel", 0)
+    return preprocess_plain(*args, screen_offset)
 
 
 def _camera_arrays(model: GaussianModel, camera: CameraParams) -> CameraArrays:

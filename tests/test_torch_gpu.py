@@ -26,6 +26,10 @@ the warp's pixel rect, and stage pair rows two batches ahead; hand-built
 inputs (``_synthetic``) probe the edges of both, with the forward held
 bitwise to its plain version.
 
+The preprocess kernel (``kernels/preprocess.py``) is held to the eager
+path it replaces where no gradient is taken: every output but rgb bitwise,
+rgb within ``kernels/preprocess.py``'s ``RGB_ATOL`` (the order of its sums).
+
 Tiles above 64 run as pixel groups of one thread block each: the forward
 with early stop on takes a second launch, the resume, counted apart
 (``resume_launches``), and the backward adds the groups' partial rows in
@@ -128,6 +132,138 @@ def test_kernel_rejects_bad_inputs(binned):
         forward_tiles(feat, rest[0].long(), *rest[1:], ntx, CFG)
     with pytest.raises(ValueError, match="feat"):
         forward_tiles(feat[:, :8].contiguous(), *rest, ntx, CFG)
+
+
+# The preprocess kernel (csrc/preprocess.cu) rounds every step of the
+# geometry as the eager path does, so every output but rgb must be bitwise
+# the eager path's on the card (floats compared by their bits,
+# ``kernels/preprocess.py::same_bits``); rgb within ``RGB_ATOL`` there, the
+# bound of its sums in another order.
+
+
+def _edge_scene(device, n, seed=0):
+    """``n`` random splats before two 96x64 cameras (one axis-aligned, one
+    turned), the first 64 rows where ``n`` allows probing the kernel's
+    edges: behind the near plane (one at depth exactly 0), zero scales,
+    axis-aligned quaternions on the camera's x = 0 plane (a zero conic
+    term), opacity at and below 1/255, huge scales (a radius past the
+    int32 range), and bboxes across every screen edge."""
+    rng = np.random.default_rng(seed)
+    w, h = 96, 64
+    means = np.stack([rng.uniform(-3, 3, n), rng.uniform(-2, 2, n), rng.uniform(-1, 4, n)], 1)
+    log_scales = rng.uniform(-4.0, -1.0, (n, 3))
+    quats = rng.normal(size=(n, 4))
+    logits = rng.uniform(-1.0, 4.0, n)
+    if n >= 64:
+        means[0:8, 2] = [-4.5, -4.2, -4.0, -3.9, -3.85, -3.81, -3.8, -3.79]  # camera depth -0.5 ... 0.21
+        log_scales[8:16] = -200.0  # exp underflows to 0
+        quats[16:24] = [1.0, 0.0, 0.0, 0.0]
+        means[16:24, 0] = 0.0
+        logits[24:28] = -10.0
+        logits[28:32] = math.log(1.0 / 254.0)  # opacity 1/255
+        log_scales[32:36] = 14.0
+        log_scales[36:40] = 20.0  # radius and spread far past the screen and the int32 range
+        # Screen edges at depth 4: x = +-0.625 * 4, y = +-0.4167 * 4, a little inside, on and outside.
+        s = np.repeat([0.97, 1.0, 1.03], 8)
+        sign = np.tile([1.0, -1.0], 12)
+        axis = np.tile([0, 0, 1, 1], 6)
+        means[40:64] = 0.0
+        means[40:64, 0] = np.where(axis == 0, sign * 2.5 * s, 0.3)
+        means[40:64, 1] = np.where(axis == 1, sign * 1.6667 * s, -0.2)
+        log_scales[40:64] = -3.0
+    arrays = {"means": means, "log_scales": log_scales, "quats": quats, "opacity_logits": logits,
+              "sh": rng.normal(size=(n, 16, 3)) * 0.3}
+    model = tgs.GaussianModel.from_arrays({k: v.astype(np.float32) for k, v in arrays.items()}, device=device)
+    fx = 0.8 * w
+    fov = (2 * math.atan(w / (2 * fx)), 2 * math.atan(h / (2 * fx)))
+    q = np.array([math.cos(0.1), 0.05, math.sin(0.1), 0.0])
+    cameras = [tgs.CameraParams(w, h, *fov, fx, fx, (1.0, 0.0, 0.0, 0.0), (0.0, 0.0, 4.0)),
+               tgs.CameraParams(w, h, *fov, fx, fx, tuple(q / np.linalg.norm(q)), (0.2, -0.1, 4.0))]
+    return model, cameras
+
+
+def _check_preprocess(device, n, degree, strict):
+    from gsplat_tpu_torch.kernels import preprocess as kp
+
+    model, cameras = _edge_scene(device, n)
+    w, h = cameras[0].width, cameras[0].height
+    with torch.no_grad():
+        inputs = (model.means, model.sh, model.quats, model.scales(), model.opacity())
+        for i, camera in enumerate(cameras):
+            cam = tgs.CameraArrays.from_params(camera, device=device)
+            before = kp.preprocess_forward.launches
+            got = kp.preprocess_forward(*inputs, cam, w, h, degree, strict)
+            torch.cuda.synchronize()
+            assert kp.preprocess_forward.launches == before + 1
+            want = kp.preprocess_plain(*inputs, cam, w, h, degree, strict)
+            for name in want._fields:
+                if name != "rgb":
+                    assert kp.same_bits(getattr(got, name), getattr(want, name)), (name, i)
+            assert got.opacity is inputs[4]
+            torch.testing.assert_close(got.rgb, want.rgb, rtol=0, atol=kp.RGB_ATOL)
+            if n >= 64 and i == 0:
+                conic, bbox, cull = want.conics, want.bbox, want.cull_bbox
+                assert bool((want.depth < 0.2).any() and (want.depth == 0).any())
+                assert bool(((conic[:, 2] == 0) & (conic[:, 0] != 0)).any())
+                assert bool(((cull[:, 2] == cull[:, 0]) & (bbox[:, 2] > bbox[:, 0])).any())  # dead, in view
+                assert bool((bbox[:, 0] == 0).any() and (bbox[:, 1] == 0).any())
+                assert bool((bbox[:, 2] == w - 1).any() and (bbox[:, 3] == h - 1).any())
+                assert bool(((bbox == torch.tensor([0, 0, w - 1, h - 1], device=device)).all(1)).any())
+                assert bool(want.active.any() and not want.active.all())
+
+
+@pytest.mark.parametrize("strict", [True, False])
+@pytest.mark.parametrize("degree", [0, 1, 2, 3])
+def test_preprocess_kernel_matches_eager(device, degree, strict):
+    """The kernel against the eager path at every SH degree, strict parity
+    on and off, at 4133 gaussians (not a multiple of the block's 128) with
+    the edge rows of ``_edge_scene``."""
+    _check_preprocess(device, 4133, degree, strict)
+
+
+@pytest.mark.parametrize("n", [1, 127, 129])
+def test_preprocess_kernel_ragged_counts(device, n):
+    """One gaussian, one short of a block, one past it."""
+    _check_preprocess(device, n, 3, True)
+
+
+def test_render_takes_the_preprocess_kernel_without_grad(device):
+    """A request under ``no_grad`` launches the preprocess kernel once and
+    counts ``preprocess_kernel`` 1; under grad, no launch and 0. The frames
+    differ only through rgb's last bits: T bitwise, colour within
+    ``RGB_ATOL``."""
+    from gsplat_tpu_torch.kernels.preprocess import RGB_ATOL, preprocess_forward
+    from gsplat_tpu_torch.utils import stages
+
+    model, camera = scene(device)
+    seen, frames = [], []
+    for grad in (False, True):
+        before = preprocess_forward.launches
+        with torch.set_grad_enabled(grad), stages.record_stages() as rec:
+            img, trans = tgs.render(model, camera, CFG)
+        torch.cuda.synchronize()
+        seen.append(([v for name, _, v in rec.counter_values() if name == "preprocess_kernel"],
+                     preprocess_forward.launches - before))
+        frames.append((img.detach(), trans.detach()))
+    assert seen == [([1], 1), ([0], 0)]
+    assert torch.equal(frames[0][1], frames[1][1])
+    torch.testing.assert_close(frames[0][0], frames[1][0], rtol=0, atol=RGB_ATOL)
+
+
+def test_preprocess_kernel_rejects_bad_inputs(device):
+    from gsplat_tpu_torch.kernels.preprocess import preprocess_forward
+
+    model, cameras = _edge_scene(device, 64)
+    cam = tgs.CameraArrays.from_params(cameras[0], device=device)
+    inputs = [model.means, model.sh, model.quats, model.scales(), model.opacity()]
+    for i, bad, match in ((0, model.means.double(), "float32"), (1, model.sh[:, :15].contiguous(), "sh"),
+                          (2, model.quats[:, :3].contiguous(), "quats"), (3, model.scales()[::2], "float32")):
+        args = list(inputs)
+        args[i] = bad
+        with pytest.raises(ValueError, match=match):
+            preprocess_forward(*args, cam, 96, 64, 3, True)
+    with pytest.raises(ValueError, match="SH degree"):
+        preprocess_forward(*inputs, cam, 96, 64, 4, True)
 
 
 def _close_to_max(got, want):
@@ -284,9 +420,8 @@ def test_sliced_render_on_card_matches_cpu(device):
     torch.testing.assert_close(trans.cpu(), c_trans, rtol=RTOL, atol=ATOL)
     for got, want in zip(grads, c_grads):
         torch.testing.assert_close(got.cpu(), want, rtol=2e-3, atol=5e-5 * float(want.abs().max()))
-    with torch.inference_mode():
-        single = tgs.render(model, camera, CFG)
-    assert torch.equal(img.detach(), single[0]) and torch.equal(trans.detach(), single[1])
+    single = tgs.render(model, camera, CFG)  # under grad too: the same (eager) preprocess
+    assert torch.equal(img.detach(), single[0].detach()) and torch.equal(trans.detach(), single[1].detach())
 
 
 def _synthetic(kind, tile_size, pair_block, seed=0):
