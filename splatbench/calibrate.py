@@ -31,7 +31,7 @@ def readings(cell, seed: int, seconds: float, with_faults: bool, device) -> dict
     from splatbench import compare, loops
     from splatbench.reference import reference_answer
 
-    kind = cell.traffic["loop"]
+    loop = cell.traffic["loop"]
     params, prog, plan = bench_run.set_up(cell, seed, device)
     window = loops.run_window(prog, seconds, plan, device)
     samples, poses = window.samples, prog.poses
@@ -55,10 +55,10 @@ def readings(cell, seed: int, seconds: float, with_faults: bool, device) -> dict
         p = samples["first"][0]
         want, _ = reference_answer(params, poses[p], cell.config, cell.traffic)
         control, _ = reference_answer(params, poses[p], cell.config, cell.traffic, dtype=torch.bfloat16)
-        out["control"] = compare.numbers(kind, control, want, cell.config["early_stop"])
+        out["control"] = compare.numbers(loop, control, want, cell.config["early_stop"])
         del control
         for k, a in planted.items():
-            out[k] = compare.numbers(kind, a, want, cell.config["early_stop"])
+            out[k] = compare.numbers(loop, a, want, cell.config["early_stop"])
     del samples, planted
     bench_run.free(device)
     return out

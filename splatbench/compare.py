@@ -1,6 +1,7 @@
 """The comparison that decides ``correct``: the numbers compared between
-an answer of the timed path and the reference's answer at the same pose,
-and their limits (``limits/<cell>.json``, set from measured readings:
+an answer of the timed path and the reference's answer at the same pose
+(each loop's ``numbers`` in ``steps/<loop>.py``, on the helpers here), and
+their limits (``limits/<cell>.json``, set from measured readings:
 ``PERF.md`` gives them).
 
   * ``image_rms``: root mean square over the frame's pixels and channels of
@@ -10,11 +11,9 @@ and their limits (``limits/<cell>.json``, set from measured readings:
   * ``image_block_rms``: the largest such root mean square over the
     frame's 32x32 pixel blocks (a wrong block is a small share of a
     1920x1080 frame).
-  * ``trans_rms`` (requests): the same for the transmittance.
-  * ``loss_rel`` (steps): |loss - reference loss| / reference loss.
-  * ``grad_rel`` (steps): over the five raw parameters, the largest
-    ||gradient - reference gradient|| / max(||reference gradient||, the
-    median of the five reference norms).
+  * ``trans_rms`` (``render``): the same for the transmittance.
+  * ``loss_rel``, ``grad_rel`` (``train``): the loss's and the gradients'
+    relative gaps (``steps/train.py``).
 
 A run takes, for each number, the worst of its compared answers.
 """
@@ -27,6 +26,8 @@ from pathlib import Path
 from typing import Dict, List, Tuple
 
 import torch
+
+from splatbench import spec
 
 
 def _excess(a: torch.Tensor, b: torch.Tensor, allowance: float) -> torch.Tensor:
@@ -50,22 +51,19 @@ def _block_rms(a: torch.Tensor, b: torch.Tensor, allowance: float, edge: int = 3
     return math.sqrt(float((sums / n).max()))
 
 
-def numbers(kind: str, got, want, allowance: float = 0.0) -> Dict[str, float]:
-    """``allowance``: the early stop's transmittance threshold, by which the
-    configuration lets a pixel's colour and transmittance differ from the
-    exact composite; the frame and transmittance numbers count only what
-    exceeds it."""
-    out = {"image_rms": _rms(got.image, want.image, allowance),
-           "image_block_rms": _block_rms(got.image, want.image, allowance)}
-    if kind == "render":
-        out["trans_rms"] = _rms(got.trans, want.trans, allowance)
-        return out
-    out["loss_rel"] = abs(float(got.loss) - float(want.loss)) / abs(float(want.loss))
-    norms = [float(r.double().norm()) for r in want.grads]
-    floor = sorted(norms)[len(norms) // 2]
-    out["grad_rel"] = max(float((g.double() - r.double()).norm()) / max(n, floor)
-                          for g, r, n in zip(got.grads, want.grads, norms))
-    return out
+def frame_numbers(got, want, allowance: float) -> Dict[str, float]:
+    """``image_rms`` and ``image_block_rms`` of the two frames."""
+    return {"image_rms": _rms(got.image, want.image, allowance),
+            "image_block_rms": _block_rms(got.image, want.image, allowance)}
+
+
+def numbers(kind: str, got, want, allowance: float = 0.0, root: Path = spec.HERE) -> Dict[str, float]:
+    """The numbers of the loop ``kind`` (a mix's ``"loop"``), by its step
+    file under ``root``. ``allowance``: the early stop's transmittance
+    threshold, by which the configuration lets a pixel's colour and
+    transmittance differ from the exact composite; the frame and
+    transmittance numbers count only what exceeds it."""
+    return spec.step_file(kind, root).numbers(got, want, allowance)
 
 
 def worst(readings: List[Dict[str, float]]) -> Dict[str, float]:

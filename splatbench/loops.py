@@ -1,32 +1,28 @@
 """The system under test and the timed loops.
 
-``Program`` holds what the program's set-up builds for one cell: the model
-on the device, the ``RasterConfig`` with its pair capacity, one camera per
-pose. ``step`` runs what the cell's traffic asks of it:
-
-  * ``train``: bench.py's step, ``render_traced`` -> ``rgb_loss`` ->
-    ``torch.autograd.grad`` to the five parameters; nothing syncs inside a
-    step and there is no optimizer, so the work per step stays fixed.
-  * ``render``: a view request, ``gsplat_tpu_torch.render(model, camera,
-    cfg)`` under ``torch.no_grad``, fenced: the frame is ready on the card
-    before the next request is sent.
+``Program`` holds what the program's set-up builds for one cell, whatever
+its loop: the model on the device, the ``RasterConfig`` with its pair
+capacity, one camera per pose. Its ``step`` runs one call of the mix's loop,
+by the loop's step file (``steps/<loop>.py``, ``spec.py`` says what it
+gives).
 
 ``fault`` breaks the step on purpose for the tests and the calibration of
 the limits (never in a benchmark run): ``stale`` returns the previous
-answer, ``half`` leaves half of the frame's rows out (the loss is the mean
-over the rest), ``altered`` adds 0.05 to one 32x32 block of the frame where
-it is produced.
+answer (here), ``half`` leaves half of the frame's rows out (the loss, where
+there is one, is the mean over the rest) and ``altered`` adds 0.05 to one
+32x32 block of the frame where it is produced (both in the step file).
 """
 
 from __future__ import annotations
 
 import time
+from pathlib import Path
 from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from splatbench import scene
+from splatbench import scene, spec
 from splatbench.reference import Answer
 
 FAULTS = ("stale", "half", "altered")
@@ -35,12 +31,14 @@ FAULTS = ("stale", "half", "altered")
 class Program:
     """The port set up for one cell."""
 
-    def __init__(self, config: dict, traffic: dict, params: List[torch.Tensor], device, fault: Optional[str] = None):
+    def __init__(self, config: dict, traffic: dict, params: List[torch.Tensor], device, fault: Optional[str] = None,
+                 root: Path = spec.HERE):
         import gsplat_tpu_torch as gs
         from gsplat_tpu_torch.render.pipeline import binning_stats
 
-        self.config, self.traffic, self.fault = config, traffic, fault
-        self.kind = traffic["loop"]
+        self.config, self.traffic, self.fault, self.device = config, traffic, fault, device
+        self.loop = spec.step_file(traffic["loop"], root)
+        self.kind = self.loop.KIND
         self.width, self.height = config["width"], config["height"]
         self.model = gs.GaussianModel(*params)
         self.poses = scene.poses(traffic)
@@ -59,50 +57,28 @@ class Program:
             max_pairs=capacity, sh_degree=config["sh_degree"], early_stop_transmittance=config["early_stop"],
             slice_pairs=config["slice_pairs"], reduce_pairs=config["reduce_pairs"],
         )
-        if self.kind == "train":
-            self.target = torch.full((self.height, self.width, 3), traffic["target"], device=device)
+        self.loop.prepare(self)
         self.params = list(self.model.parameters())
         self.last: Optional[Answer] = None
-        if fault == "altered":
-            self.block = torch.zeros((self.height, self.width, 3), device=device)
-            self.block[:32, :32] = 0.05
 
     def pose_of(self, i: int) -> int:
         return i % len(self.poses)
 
     def step(self, i: int) -> Answer:
-        from gsplat_tpu_torch import render, rgb_loss
-        from gsplat_tpu_torch.render.pipeline import render_traced
-        from gsplat_tpu_torch.utils.stages import stage
-
         if self.fault == "stale" and self.last is not None:
             return self.last
-        p = self.pose_of(i)
-        if self.kind == "render":
-            with torch.no_grad():
-                image, trans = render(self.model, self.cameras[p], self.cfg)
-                image = self._break(image)
-            out = Answer(image, trans, None, None)
-        else:
-            image, _ = render_traced(self.model, self.cams[p], self.width, self.height, self.cfg)
-            image = self._break(image)
-            pred, target = image, self.target
-            if self.fault == "half":
-                pred, target = image[::2], target[::2]
-            with stage("bench.loss"):
-                loss = rgb_loss(pred, target, self.traffic["ssim_weight"])
-            with stage("bench.backward"):
-                grads = torch.autograd.grad(loss, self.params)
-            out = Answer(image.detach(), None, loss.detach(), list(grads))
-        self.last = out
-        return out
+        self.last = self.loop.step(self, i)
+        return self.last
 
-    def _break(self, image: torch.Tensor) -> torch.Tensor:
-        if self.fault == "altered":
-            return image + self.block
-        if self.fault == "half" and self.kind == "render":
-            return image * (torch.arange(self.height, device=image.device) % 2 == 0)[:, None, None]
-        return image
+    def altered(self, image: torch.Tensor) -> torch.Tensor:
+        """The frame with 0.05 added to its first 32x32 block where the
+        ``altered`` fault is planted (also after set-up, as the
+        calibration plants it)."""
+        if self.fault != "altered":
+            return image
+        block = torch.zeros_like(image)
+        block[:32, :32] = 0.05
+        return image + block
 
 
 def sample_plan(seed: int, n_poses: int) -> tuple:
@@ -130,8 +106,9 @@ def run_window(prog: Program, seconds: float, plan: tuple, device, steps: Option
                on_step=None) -> Window:
     """A closed loop over the poses for ``seconds`` on the host clock, and at
     least one whole cycle of them (or exactly ``steps`` steps), ended by a
-    fence: the rate counts all the work of the window. Keeps the answers
-    ``plan`` names."""
+    fence: the rate counts all the work of the window. A loop of the
+    ``render`` kind fences each call and records its latency. Keeps the
+    answers ``plan`` names."""
     first, last = plan
     samples = {}
     latencies = []
@@ -145,7 +122,7 @@ def run_window(prog: Program, seconds: float, plan: tuple, device, steps: Option
             out = on_step(i)
         else:
             out = prog.step(i)
-        if prog.kind == "render":
+        if prog.kind == "render":  # a request is fenced and timed; a training step is not
             fence(device)
             latencies.append((time.perf_counter() - t) * 1e3)
         if p == first and "first" not in samples:

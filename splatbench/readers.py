@@ -15,7 +15,7 @@ from splatbench import counts as C
 
 
 class Run(NamedTuple):
-    kind: str  # "train" or "render"
+    kind: str  # the step file's KIND: "train" or "render"
     setup_s: float
     window_s: float  # host seconds of the window, from its first call to the fence after its last
     completed: int

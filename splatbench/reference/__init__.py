@@ -1,14 +1,16 @@
-"""The benchmark's plain reference: the view and the training step worked
-out again in plain PyTorch from the inputs the benchmark hands the program.
-It imports nothing of the program."""
+"""The benchmark's plain reference: each loop's call worked out again in
+plain PyTorch from the inputs the benchmark hands the program (the loop's
+``reference`` in ``steps/<loop>.py``, on ``render`` and ``loss`` here). It
+imports nothing of the program."""
 
 from __future__ import annotations
 
+from pathlib import Path
 from typing import NamedTuple, Optional
 
 import torch
 
-from splatbench.reference import loss as ref_loss
+from splatbench import spec
 from splatbench.reference import render as ref_render
 
 
@@ -21,20 +23,17 @@ class Answer(NamedTuple):
     grads: Optional[list]  # raw-parameter gradients (steps)
 
 
-def reference_answer(params, pose, config: dict, traffic: dict, dtype=torch.float64, entries: int = 1 << 25):
-    """The reference's answer to one step or request at ``pose`` (yaw,
-    shift), every float in ``dtype`` (float64 and bfloat16 have no TF32
-    path, so the global TF32 flags do not touch it). Returns (Answer,
-    Counts)."""
-    dev = params[0].device
-    cam = ref_render.camera(config["width"], config["height"], pose[0], pose[1], dtype, dev)
-    p = [x.detach().to(dtype) for x in params]
-    stop = config["early_stop"]
-    deg = config["sh_degree"]
-    if traffic["loop"] == "render":
-        view = ref_render.render(p, cam, deg, stop, entries)
-        return Answer(view.image, view.trans, None, None), view.counts
-    target = torch.full((config["height"], config["width"], 3), traffic["target"], dtype=dtype, device=dev)
-    view, loss, grads = ref_render.render_backward(
-        p, cam, deg, stop, lambda img: ref_loss.rgb_loss(img, target, traffic["ssim_weight"]), entries)
-    return Answer(view.image, view.trans, loss, grads), view.counts
+def inputs(params, pose, config: dict, dtype):
+    """The reference's camera at ``pose`` (yaw, shift) and the raw
+    parameters, every float in ``dtype``."""
+    cam = ref_render.camera(config["width"], config["height"], pose[0], pose[1], dtype, params[0].device)
+    return cam, [x.detach().to(dtype) for x in params]
+
+
+def reference_answer(params, pose, config: dict, traffic: dict, dtype=torch.float64, entries: int = 1 << 25,
+                     root: Path = spec.HERE):
+    """The reference's answer to one call of the mix's loop at ``pose``
+    (yaw, shift), every float in ``dtype`` (float64 and bfloat16 have no
+    TF32 path, so the global TF32 flags do not touch it), by the step file
+    of the loop under ``root``. Returns (Answer, Counts)."""
+    return spec.step_file(traffic["loop"], root).reference(params, pose, config, traffic, dtype, entries)

@@ -2,10 +2,12 @@
 
     python splatbench/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
-The cell, its configuration, traffic mix, limits and metric readers are
-found by the names in ``BENCHMARK.json`` (``splatbench/spec.py``). A run:
+The cell, its configuration, traffic mix, limits, metric readers, step and
+scene are found by the names in ``BENCHMARK.json`` and the files they lead
+to (``splatbench/spec.py``). A run:
 
-  1. set-up: the scene drawn on the card from ``--seed``, the kernels
+  1. set-up: the configuration's scene drawn on the card from ``--seed``
+     (``scenes/<scene>.py``), the mix's step (``steps/<loop>.py``), the kernels
      loaded from ``build/kernels/`` (built there by the first run in a
      checkout), the program's pair capacity sized over the mix's poses,
      a warm-up of every pose, continued for the mix's ``warmup_seconds``;
@@ -71,19 +73,19 @@ def power_limit() -> str:
         return "unknown"
 
 
-def set_up(cell, seed: int, device, fault=None):
+def set_up(cell, seed: int, device, fault=None, root: Path = HERE):
     """The scene and the program, warmed. Returns (params, Program, plan)."""
     import torch
 
-    from splatbench import loops, scene
+    from splatbench import loops, spec
 
     c = cell.config
-    params = scene.build_scene(c["n_gaussians"], c["scale_shift"], seed, device)
+    params = spec.scene_file(c, root).build(c, seed, device)
     if torch.device(device).type == "cuda":
         from gsplat_tpu_torch.kernels import build
 
         build.build(KERNELS)
-    prog = loops.Program(c, cell.traffic, params, device, fault)
+    prog = loops.Program(c, cell.traffic, params, device, fault, root)
     plan = loops.sample_plan(seed, len(prog.poses))
     # Every pose once, then on for the mix's warm-up seconds, so that the
     # window starts on a card and a host already at their steady pace.
@@ -101,17 +103,18 @@ def free(device) -> None:
         torch.cuda.empty_cache()
 
 
-def check(cell, params, samples: dict, poses: list):
-    """Each sampled answer against the reference at its pose. Returns
-    (worst readings, {pose: reference Counts})."""
+def check(cell, params, samples: dict, poses: list, root: Path = HERE):
+    """Each sampled answer against the reference at its pose, by the step
+    file of the mix's loop. Returns (worst readings, {pose: reference
+    Counts})."""
     from splatbench import compare
     from splatbench.reference import reference_answer
 
     readings, counts = [], {}
     for key in sorted(samples):
         p, got = samples[key]
-        want, counts[p] = reference_answer(params, poses[p], cell.config, cell.traffic)
-        readings.append(compare.numbers(cell.traffic["loop"], got, want, cell.config["early_stop"]))
+        want, counts[p] = reference_answer(params, poses[p], cell.config, cell.traffic, root=root)
+        readings.append(compare.numbers(cell.traffic["loop"], got, want, cell.config["early_stop"], root))
         del want
         free(params[0].device)
     return compare.worst(readings), counts
@@ -144,7 +147,7 @@ def run_cell(cell, units: dict, seed: int, seconds: float, traced: bool, device,
     from splatbench import trace as tr
 
     cuda = torch.device(device).type == "cuda"
-    params, prog, plan = set_up(cell, seed, device, fault)
+    params, prog, plan = set_up(cell, seed, device, fault, root)
     if cuda:
         torch.cuda.synchronize(device)
     setup_s = time.perf_counter() - t_start
@@ -162,7 +165,7 @@ def run_cell(cell, units: dict, seed: int, seconds: float, traced: bool, device,
     free(device)
 
     t_check = time.perf_counter()
-    values, counts = check(cell, params, samples, poses)
+    values, counts = check(cell, params, samples, poses, root)
     del samples
     t_counts = time.perf_counter()
     if trace is not None:

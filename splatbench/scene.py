@@ -1,13 +1,6 @@
-"""The benchmark's inputs: the scene drawn from ``--seed`` and the poses of a
-traffic mix.
-
-The scene is bench.py's distribution (``bench.py:172-200``; copied from the
-program's ``chip_smoke.build_scene``, which fixes the seed at 0): camera at
-the origin looking down +z, z in [2, 10], the view frustum filled, log
-scales in [-5.2, -3.6] plus the configuration's shift, normal quaternions,
-opacity logits in [-2, 2], SH coefficients 0.2 times a normal. It is drawn
-on the device by one ``torch.Generator`` in a few large calls.
-"""
+"""The benchmark's inputs: the poses of a traffic mix and their cameras, and
+the seed every draw starts from. The scene itself is a configuration's
+scene file (``scenes/<scene>.py``, ``spec.scene_file``)."""
 
 from __future__ import annotations
 
@@ -15,6 +8,8 @@ import math
 from typing import List, Tuple
 
 import torch
+
+from splatbench import spec
 
 PARAM_NAMES = ("means", "log_scales", "quats", "opacity_logits", "sh")
 
@@ -26,22 +21,11 @@ def seed_value(seed: int) -> int:
 
 
 def build_scene(n: int, scale_shift: float, seed: int, device) -> List[torch.Tensor]:
-    """The five raw parameters, in ``PARAM_NAMES`` order, float32."""
-    g = torch.Generator(device=device).manual_seed(seed_value(seed))
-
-    def uniform(shape, lo, hi):
-        return torch.rand(shape, generator=g, device=device) * (hi - lo) + lo
-
-    z = uniform((n,), 2.0, 10.0)
-    x = uniform((n,), -0.9, 0.9) * z
-    y = uniform((n,), -0.55, 0.55) * z
-    return [
-        torch.stack([x, y, z], -1),
-        uniform((n, 3), -5.2, -3.6) + scale_shift,
-        torch.randn((n, 4), generator=g, device=device),
-        uniform((n,), -2.0, 2.0),
-        torch.randn((n, 48), generator=g, device=device).reshape(n, 16, 3) * 0.2,
-    ]
+    """The default scene (``scenes/synthetic.py``) of ``n`` gaussians at
+    ``scale_shift``: the five raw parameters, in ``PARAM_NAMES`` order,
+    float32."""
+    config = {"n_gaussians": n, "scale_shift": scale_shift}
+    return spec.scene_file(config).build(config, seed, device)
 
 
 def poses(traffic: dict) -> List[Tuple[float, float]]:

@@ -1,7 +1,8 @@
 """The harness end to end on the CPU at a tiny size: the last-line
 contract, the refusal without a card, a configuration, a traffic mix and a
-metric added as new files alone, and the check failing on every fault
-planted in the timed path and on the control."""
+metric added as new files alone, a loop and a scene added as new files
+alone, and the check failing on every fault planted in the timed path and
+on the control."""
 
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ from splatbench.reference import reference_answer
 from splatbench.trace import Trace
 from splatbench.tests.tiny import BENCH, CPU, REPO, run_tiny, shrink, tiny_cell
 
-CELLS = ["dense_5m.train", "headline_1m.train", "dense_5m.render"]
+CELLS = ["dense_5m.train", "headline_1m.train", "dense_5m.render", "headline_1m.render"]
 
 
 @pytest.mark.parametrize("name", CELLS)
@@ -81,6 +82,88 @@ def test_a_config_a_mix_and_a_metric_added_as_files_alone(tmp_path):
     result = run.run_cell(cell, units, 7, 0.2, False, CPU, time.perf_counter(), root=root)
     assert result["correct"] is True
     assert result["metrics"]["tiny.requests"] == {"value": float(result["attempted"]), "unit": "requests"}
+    after = {p.relative_to(root): p.read_bytes() for p in root.rglob("*") if p.is_file() and "__pycache__" not in str(p)}
+    assert all(after[k] == v for k, v in before.items())  # nothing that was there was edited
+
+
+TWICE = '''"""A train step taken twice a call: the loss and the gradients summed."""
+from pathlib import Path
+
+from splatbench import spec
+
+TRAIN = spec.step_file("train", Path(__file__).resolve().parents[1])
+KIND = "train"
+prepare = TRAIN.prepare
+numbers = TRAIN.numbers
+
+
+def step(prog, i):
+    a, b = TRAIN.step(prog, i), TRAIN.step(prog, i)
+    return b._replace(loss=a.loss + b.loss, grads=[x + y for x, y in zip(a.grads, b.grads)])
+
+
+def reference(params, pose, config, traffic, dtype, entries):
+    want, counts = TRAIN.reference(params, pose, config, traffic, dtype, entries)
+    return want._replace(loss=2 * want.loss, grads=[2 * g for g in want.grads]), counts
+'''
+
+FLAT = '''"""A wall of gaussians facing the camera, z in [3.5, 4.5]."""
+import torch
+
+
+def build(config, seed, device):
+    n = config["n_gaussians"]
+    g = torch.Generator(device=device).manual_seed(seed % (1 << 63))
+
+    def uniform(shape, lo, hi):
+        return torch.rand(shape, generator=g, device=device) * (hi - lo) + lo
+
+    z = uniform((n,), 3.5, 4.5)
+    xy = uniform((n, 2), -0.7, 0.7) * z[:, None]
+    return [torch.cat([xy, z[:, None]], -1), uniform((n, 3), -3.6, -2.8), torch.randn((n, 4), generator=g, device=device),
+            uniform((n,), -2.0, 2.0), torch.randn((n, 16, 3), generator=g, device=device) * 0.2]
+'''
+
+
+def test_a_loop_and_a_scene_added_as_files_alone(tmp_path):
+    """A loop (``steps/tiny_twice.py``), a scene (``scenes/tiny_flat.py``), a
+    configuration naming the scene, a mix naming the loop and limits, as new
+    files of a copy of the harness: its cell runs correct, each planted
+    fault fails its check, and no file that was there is edited."""
+    import time
+
+    root = tmp_path / "splatbench"
+    shutil.copytree(run.HERE, root, ignore=shutil.ignore_patterns("__pycache__", "tests"))
+    before = {p.relative_to(root): p.read_bytes() for p in root.rglob("*") if p.is_file()}
+    (root / "steps/tiny_twice.py").write_text(TWICE)
+    (root / "scenes/tiny_flat.py").write_text(FLAT)
+    config = json.loads((REPO / "splatbench/configs/headline_1m.json").read_text())
+    (root / "configs/tiny_wall.json").write_text(json.dumps(dict(config, scene="tiny_flat", n_gaussians=1500)))
+    mix = json.loads((root / "traffic/train.json").read_text())
+    (root / "traffic/tiny_twice.json").write_text(json.dumps(dict(mix, loop="tiny_twice")))
+    (root / "limits/tiny_wall.tiny_twice.json").write_text((root / "limits/headline_1m.train.json").read_text())
+    bench = json.loads(json.dumps(BENCH))
+    bench["configs"].append({"name": "tiny_wall", "source": "x", "file": "splatbench/configs/tiny_wall.json",
+                             "reduced": [], "why": "x"})
+    bench["workloads"].append({"name": "tiny_wall.tiny_twice", "config": "tiny_wall", "traffic": "tiny_twice",
+                               "chips": 1, "why": "x"})
+    for m in bench["end_to_end"] + bench["per_layer"]:
+        if "dense_5m.train" in m.get("workloads", []):
+            m["workloads"].append("tiny_wall.tiny_twice")
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+    cell = shrink(spec.load_cell(bench, "tiny_wall.tiny_twice", tmp_path, root))
+    assert cell.end_to_end == ["setup_s", "train_frames_per_s"]
+    units = {m["name"]: m["unit"] for m in bench["end_to_end"] + bench["per_layer"]}
+    params, prog, _ = run.set_up(cell, 7, CPU, root=root)
+    assert float(params[0][:, 2].min()) >= 3.5  # the wall, not the default scene
+    assert prog.loop.__file__ == str(root / "steps/tiny_twice.py")
+    del params, prog
+    result = run.run_cell(cell, units, 7, 0.2, False, CPU, time.perf_counter(), root=root)
+    assert result["correct"] is True, result["checks"]
+    assert set(result["metrics"]) == {"setup_s", "train_frames_per_s"}
+    for fault in loops.FAULTS:
+        result = run.run_cell(cell, units, 7, 0.2, False, CPU, time.perf_counter(), root=root, fault=fault)
+        assert result["correct"] is False, (fault, result["checks"])
     after = {p.relative_to(root): p.read_bytes() for p in root.rglob("*") if p.is_file() and "__pycache__" not in str(p)}
     assert all(after[k] == v for k, v in before.items())  # nothing that was there was edited
 
