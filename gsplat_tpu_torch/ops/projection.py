@@ -270,7 +270,10 @@ def preprocess_gaussians_from_params(
     fy = focal_y / 2.0
     lim_x = EWA_TAN_CLAMP * tan_fov_x
     lim_y = EWA_TAN_CLAMP * tan_fov_y
-    inv_z = 1.0 / depth
+    # A culled gaussian's EWA terms are discarded below; its depth may be 0
+    # (a pool's dead rows sit at the origin), whose 1/0 would turn the
+    # discarded branch's zero gradient into NaN.
+    inv_z = 1.0 / torch.where(culled, torch.ones_like(depth), depth)
     tx_c = torch.clamp(cam_x * inv_z, -lim_x, lim_x) * depth
     ty_c = torch.clamp(cam_y * inv_z, -lim_y, lim_y) * depth
     j00 = fx * inv_z

@@ -80,7 +80,11 @@ def sh_to_rgb(
     if not 0 <= degree <= 3:
         raise ValueError(f"SH degree must be in [0, 3], got {degree}")
     dirs = means - cam_center[None, :]
-    dirs = dirs / torch.linalg.vector_norm(dirs, dim=-1, keepdim=True)
+    # A gaussian at the camera centre (a pool's dead rows at the origin, seen
+    # from a camera there) keeps a zero direction rather than 0/0: it is
+    # culled, and a NaN here would reach its gradient.
+    norm = torch.linalg.vector_norm(dirs, dim=-1, keepdim=True)
+    dirs = dirs / torch.where(norm > 0, norm, torch.ones_like(norm))
     basis = sh_basis(dirs, degree)  # [N, B]
     nb = basis.shape[-1]
     colors = torch.einsum("nb,nbc->nc", basis, sh_coeffs[:, :nb, :]) + 0.5

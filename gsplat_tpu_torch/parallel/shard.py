@@ -49,7 +49,7 @@ from gsplat_tpu_torch.train.densify import screen_radii
 from gsplat_tpu_torch.train.loss import rgb_loss
 from gsplat_tpu_torch.train.trainer import FitLoop, check_background, make_optimizer, optimizer_step
 from gsplat_tpu_torch.utils.logging import get_logger
-from gsplat_tpu_torch.utils.stages import stage
+from gsplat_tpu_torch.utils.stages import stage, sync
 
 logger = get_logger()
 
@@ -452,7 +452,9 @@ class ParallelTrainer(FitLoop):
         warn."""
         if self._stats_fn is None:
             self._stats_fn = make_sharded_binning_stats(self.mesh, width, height, self.raster)
-        demand = max(int(self._stats_fn(model, cam)["max_shard_demand"]) for cam in cams)
+        stats = [self._stats_fn(model, cam)["max_shard_demand"] for cam in cams]
+        with sync("capacity_check"):
+            demand = max(int(d) for d in stats)
         if demand <= self.raster.max_pairs:
             return False
         target = required_max_pairs(demand)
@@ -500,9 +502,9 @@ class ParallelTrainer(FitLoop):
         targets = torch.cat([self._targets[i] for i in idx])
         result = self._step_fn(model, optimizer, cams, targets, bg)
         if not with_vs:
-            return result[2], []
+            return result[2], [], None
         vs, radii = result[3], result[4]
-        return result[2], [(vs[b], *self._size, radii[b]) for b in range(len(idx))]
+        return result[2], [(vs[b], *self._size, radii[b]) for b in range(len(idx))], None
 
     def _recheck(self, model, views, idx):
         self.check_capacity(model, [self._cams[i] for i in idx], *self._size)

@@ -34,6 +34,7 @@ import torch
 from gsplat_tpu_torch.config import GAUSSIAN_SPREAD, DensifyConfig
 from gsplat_tpu_torch.models.gaussians import DEAD_OPACITY_LOGIT, PARAM_NAMES, GaussianModel, pad_model
 from gsplat_tpu_torch.ops.quaternion import quaternion_to_rotation_matrix
+from gsplat_tpu_torch.utils import stages
 
 # A slot counts as alive while its raw logit is above this; prune writes
 # DEAD_OPACITY_LOGIT and all pool padding starts there.
@@ -167,8 +168,9 @@ def _densify_prune_step(model, state, eps, scene_extent, cfg, step):
     # sorts (free slots in slot order; candidates by falling avg_grad, ties
     # and non-candidates in slot order). `+ 0.0` turns -0.0 into 0.0, which
     # the JAX sort treats as equal.
-    n_free = int((~alive).sum())
-    n_want = int(want.sum())
+    free_count, want_count = (~alive).sum(), want.sum()
+    with stages.sync("densify_sync"):
+        n_free, n_want = int(free_count), int(want_count)
     k = min(n_free, n_want)
     dst = torch.sort(alive.to(torch.int32), stable=True).indices[:k]
     src = torch.sort(torch.where(want, -avg_grad + 0.0, math.inf), stable=True).indices[:k]
@@ -210,13 +212,12 @@ def _densify_prune_step(model, state, eps, scene_extent, cfg, step):
     touched = prune | shrink_orig
     touched[dst] = True
 
-    stats = {
-        "pruned": int(prune.sum()),
-        "cloned": int((placed & ~is_split).sum()),
-        "split": int((placed & is_split).sum()),
-        "wanted": n_want,
-        "alive": int(num_alive(model)),
-    }
+    counts = {"pruned": prune.sum(), "cloned": (placed & ~is_split).sum(), "split": (placed & is_split).sum(),
+              "wanted": n_want, "alive": num_alive(model)}
+    for name, value in counts.items():
+        stages.count("densify_wanted" if name == "wanted" else name, value)
+    with stages.sync("densify_sync"):
+        stats = {name: int(value) for name, value in counts.items()}
     return model, touched, stats
 
 

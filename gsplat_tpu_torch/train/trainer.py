@@ -8,13 +8,14 @@ backward compositor, then autograd through the preprocess) and updates
 the model in place. With ``TrainConfig.densify`` the step also reads the
 viewspace gradient and the projected radii that adaptive density control
 accumulates (``train/densify.py``); ``fit`` can checkpoint its whole loop
-state and resume from it (``train/checkpoint.py``).
+state and resume from it (``train/checkpoint.py``). ``fit_step`` is one of
+``fit``'s steps on that state held in a ``FitState``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -29,7 +30,7 @@ from gsplat_tpu_torch.train.loss import psnr, rgb_loss
 from gsplat_tpu_torch.utils import stages
 from gsplat_tpu_torch.utils.logging import get_logger
 from gsplat_tpu_torch.utils.progress import progress
-from gsplat_tpu_torch.utils.stages import stage
+from gsplat_tpu_torch.utils.stages import stage, sync
 
 logger = get_logger()
 
@@ -110,13 +111,40 @@ def background(tc: TrainConfig, rng: np.random.Generator, device) -> torch.Tenso
     return torch.zeros(3, device=device)
 
 
+@dataclasses.dataclass
+class FitState:
+    """The whole state of :class:`FitLoop`'s loop between two steps: the
+    model (the pool, when densifying), its optimizer, the background
+    generator and, when densifying, the viewspace-gradient accumulator, the
+    split-sample generator and the scene extent the pass sizes against."""
+
+    model: GaussianModel
+    optimizer: torch.optim.Adam
+    bg_rng: np.random.Generator
+    dstate: Optional[D.DensifyState] = None
+    generator: Optional[torch.Generator] = None
+    extent: Optional[float] = None
+
+
+class StepResult(NamedTuple):
+    """What one :meth:`FitLoop.fit_step` did."""
+
+    metrics: Dict[str, torch.Tensor]  # loss, psnr: 0-d on the device, of the frame before the update
+    image: Optional[torch.Tensor]  # that frame on its background [H, W, 3] (None where it is sharded)
+    record: Optional[Dict[str, float]]  # the history record, on a step that logs one
+    densified: Optional[tuple]  # at a pass: (the accumulator it read, the rows it touched [C], its stats)
+
+
 class FitLoop:
     """The loop that :class:`Trainer` and ``parallel.shard.ParallelTrainer``
     share: resume, the densify pool, SH warmup, the background draws, the
     densify and opacity-reset schedule, the history, the capacity re-checks
     and the loop checkpoints. A trainer provides ``raster``, ``train``,
     ``show_progress`` and ``_bg_rng`` and the hooks below: each step trains
-    on ``_views_per_step()`` views taken round-robin."""
+    on ``_views_per_step()`` views taken round-robin.
+
+    ``fit`` runs the whole loop. ``init_fit`` and ``fit_step`` are its parts:
+    the state before the first step, and one step on that state."""
 
     _desc = "finetune"  # the progress bar's label
     _main = True  # this process logs and calls ``log_fn``
@@ -134,7 +162,8 @@ class FitLoop:
     def _train_views(self, model, optimizer, views, idx, bg, sh_degree, with_vs):
         """One update on ``views[i] for i in idx``. Returns (metrics, the
         densify samples ``[(viewspace gradient [C, 2], width, height, radii
-        [C]), ...]``, one per view when ``with_vs``, else none)."""
+        [C]), ...]``, one per view when ``with_vs``, else none; the frame
+        on its background, or None where it is sharded)."""
         raise NotImplementedError
 
     def _recheck(self, model, views, idx) -> None:
@@ -143,6 +172,107 @@ class FitLoop:
 
     def _save(self, checkpoint_dir, *state) -> None:
         CK.save_loop_state(checkpoint_dir, *state)
+
+    def init_fit(
+        self,
+        model: GaussianModel,
+        views: Sequence[Tuple[CameraParams, torch.Tensor]],
+        checkpoint_dir: Optional[str] = None,
+        resume: bool = False,
+    ) -> Tuple[FitState, int]:
+        """The loop's state before its first step, and that step's number:
+        ``model`` (copied into the densify pool with ``train.densify``) and a
+        fresh optimizer, or with ``resume`` the state saved under
+        ``checkpoint_dir`` (as :meth:`fit` says). Makes the first capacity
+        check."""
+        dc = self.train.densify
+        dev = model.means.device
+        dstate = generator = optimizer = extent = None
+        start_step = 0
+        resumed = bool(resume and checkpoint_dir and CK.has_loop_state(checkpoint_dir))
+        if resumed:
+            model, optimizer, start_step, dstate, generator = CK.restore_loop_state(
+                checkpoint_dir, lambda m: make_optimizer(m, self.train), device=dev
+            )
+            if self._main:
+                logger.info("resumed from %s at step %d", CK.loop_state_path(checkpoint_dir), start_step)
+            if self.train.background == "random":
+                # Replay the numpy RNG to the resume point, so the background
+                # sequence goes on where the interrupted run left it.
+                for _ in range(start_step):
+                    self._bg_rng.uniform(size=3)
+        self._start(model, views, resumed)
+        if dc is not None:
+            extent = D.camera_extent([c for c, _ in views])
+            if optimizer is None:
+                model = D.init_pool(model, dc)
+                dstate = D.DensifyState.zero(model.num_gaussians, dev)
+                generator = torch.Generator(device=dev).manual_seed(0)
+        if optimizer is None:
+            optimizer = make_optimizer(model, self.train)
+        self._begin(model, views, start_step)
+        return FitState(model, optimizer, self._bg_rng, dstate, generator, extent), start_step
+
+    def fit_step(
+        self,
+        state: FitState,
+        step: int,
+        views: Sequence[Tuple[CameraParams, torch.Tensor]],
+        steps: Optional[int] = None,
+        log_fn=None,
+    ) -> StepResult:
+        """Loop step ``step`` of :meth:`fit` (of ``steps``), on ``state`` in
+        place: the background draw; the update on this step's views, with
+        the viewspace probe when densifying; the probe's accumulation; at
+        the densify cadence the clone/split/prune pass, its optimizer rows
+        reset and the capacity re-check; at its cadence the opacity reset;
+        every ``log_every`` steps and at the last one the history record
+        (handed to ``log_fn``) and, past step 0, the capacity re-check."""
+        steps = steps if steps is not None else self.train.steps
+        dc = self.train.densify
+        dev = state.model.means.device
+        per = self._views_per_step()
+        idx = [(step * per + i) % len(views) for i in range(per)]
+        # 3DGS SH warmup: view-dependent colour is introduced band by band.
+        deg = self.raster.sh_degree
+        if self.train.sh_warmup_every > 0:
+            deg = min(step // self.train.sh_warmup_every, deg)
+        record = densified = None
+        with stages.step(step):
+            bg = background(self.train, state.bg_rng, dev)
+            metrics, samples, image = self._train_views(
+                state.model, state.optimizer, views, idx, bg, deg, dc is not None
+            )
+            if dc is not None:
+                with stage("densify_stats"):
+                    for vs_grad, width, height, radii in samples:
+                        state.dstate = D.accumulate(state.dstate, vs_grad, width, height, radii)
+                if dc.start <= step < dc.until and step > 0 and step % dc.every == 0:
+                    with stage("densify"):
+                        _, touched, dstats = D.densify_prune_step(
+                            state.model, state.dstate, state.generator, state.extent, dc, step=step
+                        )
+                        D.reset_opt_rows(state.optimizer, touched)
+                    densified = (state.dstate, touched, dstats)
+                    state.dstate = D.DensifyState.zero(state.model.num_gaussians, dev)
+                    if self._main:
+                        logger.info(
+                            "densify @%d: +%d clone +%d split -%d prune (%d alive)",
+                            step, dstats["cloned"], dstats["split"], dstats["pruned"], dstats["alive"],
+                        )
+                    # Clones and splits grow the pair demand.
+                    self._recheck(state.model, views, idx)
+                if dc.opacity_reset_every and step > 0 and step % dc.opacity_reset_every == 0:
+                    with stage("opacity_reset"):
+                        D.reset_opacity(state.model)
+            if step % self.train.log_every == 0 or step == steps - 1:
+                record = {k: float(v) for k, v in metrics.items()}
+                record["step"] = step
+                if log_fn is not None and self._main:
+                    log_fn(record)
+                if step > 0:  # splats grow during training; re-check budget
+                    self._recheck(state.model, views, idx[:1])
+        return StepResult(metrics, image, record, densified)
 
     def fit(
         self,
@@ -174,77 +304,22 @@ class FitLoop:
         the resumed steps only.
         """
         steps = steps if steps is not None else self.train.steps
-        dc = self.train.densify
-        dev = model.means.device
-        dstate = generator = optimizer = None
-        start_step = 0
-        resumed = bool(resume and checkpoint_dir and CK.has_loop_state(checkpoint_dir))
-        if resumed:
-            model, optimizer, start_step, dstate, generator = CK.restore_loop_state(
-                checkpoint_dir, lambda m: make_optimizer(m, self.train), device=dev
-            )
-            if self._main:
-                logger.info("resumed from %s at step %d", CK.loop_state_path(checkpoint_dir), start_step)
-            if self.train.background == "random":
-                # Replay the numpy RNG to the resume point, so the background
-                # sequence goes on where the interrupted run left it.
-                for _ in range(start_step):
-                    self._bg_rng.uniform(size=3)
-        self._start(model, views, resumed)
-        if dc is not None:
-            extent = D.camera_extent([c for c, _ in views])
-            if optimizer is None:
-                model = D.init_pool(model, dc)
-                dstate = D.DensifyState.zero(model.num_gaussians, dev)
-                generator = torch.Generator(device=dev).manual_seed(0)
-        if optimizer is None:
-            optimizer = make_optimizer(model, self.train)
+        state, start_step = self.init_fit(model, views, checkpoint_dir, resume)
         history: List[Dict[str, float]] = []
-        self._begin(model, views, start_step)
-        per = self._views_per_step()
         for step in progress(range(start_step, steps), desc=self._desc, enabled=self.show_progress):
-            idx = [(step * per + i) % len(views) for i in range(per)]
-            # 3DGS SH warmup: view-dependent colour is introduced band by band.
-            deg = self.raster.sh_degree
-            if self.train.sh_warmup_every > 0:
-                deg = min(step // self.train.sh_warmup_every, deg)
-            bg = background(self.train, self._bg_rng, dev)
-            with stages.step(step):
-                metrics, samples = self._train_views(model, optimizer, views, idx, bg, deg, dc is not None)
-            if dc is not None:
-                for vs_grad, width, height, radii in samples:
-                    dstate = D.accumulate(dstate, vs_grad, width, height, radii)
-                if dc.start <= step < dc.until and step > 0 and step % dc.every == 0:
-                    _, touched, dstats = D.densify_prune_step(model, dstate, generator, extent, dc, step=step)
-                    D.reset_opt_rows(optimizer, touched)
-                    dstate = D.DensifyState.zero(model.num_gaussians, dev)
-                    if self._main:
-                        logger.info(
-                            "densify @%d: +%d clone +%d split -%d prune (%d alive)",
-                            step, dstats["cloned"], dstats["split"], dstats["pruned"], dstats["alive"],
-                        )
-                    # Clones and splits grow the pair demand.
-                    self._recheck(model, views, idx)
-                if dc.opacity_reset_every and step > 0 and step % dc.opacity_reset_every == 0:
-                    D.reset_opacity(model)
-            if step % self.train.log_every == 0 or step == steps - 1:
-                record = {k: float(v) for k, v in metrics.items()}
-                record["step"] = step
+            record = self.fit_step(state, step, views, steps, log_fn).record
+            if record is not None:
                 history.append(record)
-                if log_fn is not None and self._main:
-                    log_fn(record)
-                if step > 0:  # splats grow during training; re-check budget
-                    self._recheck(model, views, idx[:1])
             if (checkpoint_dir and self.train.checkpoint_every > 0
                     and (step + 1) % self.train.checkpoint_every == 0 and step + 1 < steps):
-                self._save(checkpoint_dir, model, optimizer, step + 1, dstate, generator)
+                self._save(checkpoint_dir, state.model, state.optimizer, step + 1, state.dstate, state.generator)
         if checkpoint_dir:
             # The final state, before compaction (the densify state describes
             # the pool): a later resume with more steps continues from here.
-            self._save(checkpoint_dir, model, optimizer, steps, dstate, generator)
-        if dc is not None:
-            model = D.compact(model)
-        return model, history
+            self._save(checkpoint_dir, state.model, state.optimizer, steps, state.dstate, state.generator)
+        if self.train.densify is not None:
+            return D.compact(state.model), history
+        return state.model, history
 
 
 @dataclasses.dataclass
@@ -280,7 +355,8 @@ class Trainer(FitLoop):
 
     def _step(self, model, optimizer, cam, target, bg, width, height, cfg, screen_offset=None):
         """One update. Returns (metrics, the preprocess of the model before
-        the update); ``screen_offset`` is passed to the render."""
+        the update, the frame on its background); ``screen_offset`` is
+        passed to the render."""
         optimizer.zero_grad(set_to_none=True)
         with stage("forward"):
             image, trans, prep = render_with_preprocess(model, cam, width, height, cfg, screen_offset)
@@ -290,8 +366,9 @@ class Trainer(FitLoop):
             loss.backward()
         with stage("optimizer"):
             optimizer_step(optimizer, self.train)
+        image = image.detach()
         with torch.no_grad():
-            return {"loss": loss.detach(), "psnr": psnr(image, target)}, prep
+            return {"loss": loss.detach(), "psnr": psnr(image, target)}, prep, image
 
     def _step_vs(self, model, optimizer, cam, target, bg, width, height, cfg):
         """The densifying step: also differentiates the loss with respect to
@@ -299,13 +376,13 @@ class Trainer(FitLoop):
         viewspace gradient, and reads the view's projected radii (the input
         of the screen-size prune) from the render's own preprocess of the
         model before the update. Returns (metrics, viewspace gradient
-        ``[C, 2]``, radii ``[C]``)."""
+        ``[C, 2]``, radii ``[C]``, the frame on its background)."""
         offset = torch.zeros((model.num_gaussians, 2), dtype=model.means.dtype, device=model.means.device,
                              requires_grad=True)
-        metrics, prep = self._step(model, optimizer, cam, target, bg, width, height, cfg, offset)
-        with torch.no_grad():
+        metrics, prep, image = self._step(model, optimizer, cam, target, bg, width, height, cfg, offset)
+        with torch.no_grad(), stage("densify_stats"):
             radii = D.screen_radii(prep.conics, prep.active)
-        return metrics, offset.grad, radii
+        return metrics, offset.grad, radii, image
 
     def train_step(
         self,
@@ -333,7 +410,8 @@ class Trainer(FitLoop):
         cam = CameraArrays.from_params(camera, dtype=model.means.dtype, device=model.means.device)
         with torch.no_grad():
             stats = binning_stats(model, cam, camera.width, camera.height, self.raster)
-        demand = int(stats["pair_demand"])
+        with sync("capacity_check"):
+            demand = int(stats["pair_demand"])
         if demand > self.raster.max_pairs:
             target = required_max_pairs(demand)
             if self.auto_pairs:
@@ -362,9 +440,10 @@ class Trainer(FitLoop):
         cam = CameraArrays.from_params(camera, dtype=model.means.dtype, device=model.means.device)
         args = (model, optimizer, cam, target, bg, camera.width, camera.height, cfg)
         if not with_vs:
-            return self._step(*args)[0], []
-        metrics, vs_grad, radii = self._step_vs(*args)
-        return metrics, [(vs_grad, camera.width, camera.height, radii)]
+            metrics, _, image = self._step(*args)
+            return metrics, [], image
+        metrics, vs_grad, radii, image = self._step_vs(*args)
+        return metrics, [(vs_grad, camera.width, camera.height, radii)], image
 
     def _recheck(self, model, views, idx):
         self.check_capacity(model, views[idx[0]][0])

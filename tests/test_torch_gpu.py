@@ -998,3 +998,31 @@ def test_tracer_on_card(device, sliced):
         counts[name] = counts.get(name, 0) + value
     assert counts["host_syncs"] == len([s for s in rec.spans if s.sync]) >= 1
     assert counts["pairs"] > 0 and ("slices" in counts) == sliced
+
+
+def test_recipe_steps_on_card_match_reference(device):
+    """The benchmark's ``recipe_5m.fit`` step (``splatbench/steps/fit.py``:
+    the loop state restored to iteration 7,550, then ``Trainer.fit_step``
+    on the densify pool) on a 20,000-gaussian draw of its scene at
+    384x256 on the card: a step and a pass step (step 50, iteration 7,600)
+    held to the plain float64 reference ``splatbench/reference/fit.py``
+    within the cell's own limits, which its full-size runs are held to."""
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    from splatbench import compare, run, spec
+    from splatbench.reference import reference_answer
+
+    bench = json.loads((run.REPO / "BENCHMARK.json").read_text())
+    cell = spec.load_cell(bench, "recipe_5m.fit", run.REPO)
+    config = dict(cell.config, n_gaussians=20_000, width=384, height=256, slice_pairs=1 << 14,
+                  reduce_pairs=1 << 15)
+    cell = cell._replace(config=config, traffic=dict(cell.traffic, warmup_seconds=0.0))
+    params, prog, _ = run.set_up(cell, 2147483659, device)
+    answers = {i: prog.step(i) for i in (1, 50)}
+    limits = compare.load_limits(run.HERE, "recipe_5m.fit")
+    assert answers[50].passed and not answers[1].passed
+    for i, got in answers.items():
+        want, _ = reference_answer(params, prog.poses[prog.pose_of(i)], config, cell.traffic)
+        correct, checks = compare.judge(compare.numbers("fit", got, want, config["early_stop"]), limits)
+        assert correct, (i, checks)
