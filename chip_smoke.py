@@ -31,8 +31,9 @@ then runs sixteen phases, each printing one JSON line:
   6. train: the bench training step at the phase-3 scene (exact mode,
      ``rgb_loss`` against 0.25 with SSIM weight 0.2): one full-frame
      backward kernel against its plain version, then ``Trainer.fit`` for 3
-     steps over the three phase-3 poses (finite losses, one forward and one
-     backward launch per step, every parameter changed), the step's median
+     steps over the three phase-3 poses (finite losses, one forward, one
+     backward and one preprocess backward launch per step, every parameter
+     changed), the step's median
      time, device-busy time and the stages ``train_step`` marks (the
      backward's as ``loss_bwd``, ``raster_bwd``, ``reduction`` and
      ``preprocess_bwd``), the
@@ -155,16 +156,21 @@ then runs sixteen phases, each printing one JSON line:
      and quartiles of alternating rounds; orientation: ms and ns a
      pair-pixel at each feature set beside the one-SM bounds) go to the
      ``kernels`` line.
- 16. preprocess: the preprocess kernel (``preprocess_phase``,
+ 16. preprocess: the preprocess kernels (``preprocess_phase``,
      ``kernels/preprocess.py``) at the headline (1M) and dense (5M) scenes
      at the eight ``orbit8`` poses of ``splatbench/traffic/render.json``:
-     every output but rgb bitwise the eager path's, rgb within
-     ``RGB_ATOL`` (its sums in another order); its device ms in queued
-     rounds and from the profiler beside its bytes bound, the eager path's
-     ms, the device operations of a grad-free preprocess (at most 4, the
-     nodes of its CUDA graph capture) and of the eager one (the
-     profiler's); a dense request's and training step's stages, with
-     ``preprocess_kernel`` counted 1 and 0.
+     every forward output but rgb bitwise the eager path's, rgb within
+     ``RGB_ATOL`` (its sums in another order); the forward's device ms in
+     queued rounds and from the profiler beside its bytes bound, the eager
+     path's ms, the device operations of a grad-free preprocess (at most 4,
+     the nodes of its CUDA graph capture) and of the eager one (the
+     profiler's); the backward kernel's gradients against the eager
+     autograd and its times beside its bytes bound and the eager
+     backward's, at both scenes and at ``recipe_5m``'s pool of 10,000,128
+     rows (the forward's time there too); a dense request's and training
+     step's stages, with ``preprocess_kernel`` counted 1 on both,
+     ``preprocess_bwd_kernel`` 1 on the step, and each kernel launched once
+     a step.
 
 A kernel's bound counts the work its inputs need. ``bound_ms`` charges the
 gate (and its expf) only at the walked pair-pixels inside each pair's
@@ -188,7 +194,8 @@ line (each compositor's launches on the main path and in phases 9, 10, 11,
 mode and the launch run, and its times and bounds at phase 12's tilings;
 then each probe kernel's launches, times and bounds from phase 15, and
 the preprocess kernel's launches on the main path (phase 3) and over
-phase 16, with its times and bounds from phase 16) and,
+phase 16, with its times and bounds from phase 16, and the preprocess
+backward kernel's over phase 6's steps and phase 16) and,
 last, ``{"ok": true, "device": {...}}``. Any failed check raises,
 so the script exits non-zero and prints no result; it also refuses to run
 without a CUDA device or without the ``gsplat_tpu_torch`` package beside it.
@@ -2409,28 +2416,117 @@ def profiled_kernel_ms(fn, name: str):
     return (busy_us / 1e3 / count if count else None), count
 
 
+def queued_kernel_ms(fn, name: str) -> dict:
+    """One kernel call ``fn()`` timed as phase 16 times it: device ms in
+    queued rounds (graphs of ``PREP_ITERS`` calls replayed after a device
+    spin; median and quartiles) and from the profiler (a mean over the
+    launches of the kernels named ``name`` it recorded)."""
+    graph = capture_graph(fn, PREP_ITERS, warmup=3)
+    rounds = sorted(replay_ms(graph, PREP_ITERS, PREP_SLEEP_CYCLES) for _ in range(PREP_ROUNDS))
+    q1, med, q3 = statistics.quantiles(rounds, n=4)
+    del graph
+
+    def calls():
+        for _ in range(PREP_PROFILE_CALLS):
+            fn()  # each call's outputs freed before the next: the pool's gradients are 2.3 GB a call
+
+    prof_ms, prof_launches = profiled_kernel_ms(calls, name)
+    return {"kernel_ms": med, "kernel_ms_quartiles": [q1, q3], "kernel_profiler_ms": prof_ms,
+            "kernel_profiler_launches": prof_launches}
+
+
+def preprocess_backward_record(model, cam, label: str) -> dict:
+    """The preprocess backward kernel at one model and camera: its
+    gradients against the eager path's autograd for a random cotangent of
+    the packed features (read as ``pack_features``' column slices; rgb's
+    entries zero where either path's colour lies within ``RGB_ATOL`` of the
+    clamp's kinks at 0 and 1), within rtol 1e-4 + atol 1e-5 of each
+    column's largest magnitude (``err_ratio``: the worst error over that
+    tolerance); its device ms (``queued_kernel_ms``) beside its bytes bound
+    (``bytes_moved_backward``); the eager backward's ms (CUDA events) and
+    profiler ms, over a graph built once."""
+    import torch
+
+    from gsplat_tpu_torch.kernels import preprocess as kp
+
+    n = model.num_gaussians
+    dev = model.means.device
+    cam = type(cam)(*(t.clone() for t in cam))  # not inference tensors: the eager graph saves them
+    with torch.no_grad():
+        inputs = tuple(t.detach().clone() for t in (model.means, model.sh, model.quats, model.scales()))
+        opacity = model.opacity().detach().clone()
+        kink = torch.zeros((n, 3), dtype=torch.bool, device=dev)
+        for prep in (kp.preprocess_forward(*inputs, opacity, cam, WIDTH, HEIGHT, 3, True),
+                     kp.preprocess_plain(*inputs, opacity, cam, WIDTH, HEIGHT, 3, True)):
+            kink |= (prep.rgb <= kp.RGB_ATOL) | (prep.rgb >= 1.0 - kp.RGB_ATOL)
+        del prep
+    g = torch.Generator(device=dev).manual_seed(1)
+    v_feat = torch.randn((n + 1, 16), generator=g, device=dev)
+    v_feat[:n, 6:9][kink] = 0.0
+    del kink
+    cot = (v_feat[:n, 0:2], v_feat[:n, 2:5], v_feat[:n, 6:9])  # pack_features' columns
+
+    def kernel():
+        return kp.preprocess_backward(*inputs, cam, WIDTH, HEIGHT, 3, *cot)
+
+    leaves = [t.clone().requires_grad_() for t in inputs]
+    prep = kp.preprocess_plain(*leaves, opacity, cam, WIDTH, HEIGHT, 3, True)
+    outs = (prep.screen_means, prep.conics, prep.rgb)
+    del prep
+
+    def eager():
+        return torch.autograd.grad(outs, leaves, cot, retain_graph=True)
+
+    ratio = 0.0
+    for name, got, want in zip(("means", "sh", "quats", "scales"), kernel(), eager()):
+        got, want = got.reshape(n, -1), want.reshape(n, -1)
+        finite = torch.isfinite(want)
+        check(torch.equal(torch.isfinite(got), finite), f"{label}: {name} gradient finite where the eager path's is")
+        scale = torch.where(finite, want.abs(), torch.zeros_like(want)).amax(0, keepdim=True)
+        tol = 1e-4 * want.abs() + 1e-5 * scale
+        worst = float(torch.where(finite, (got - want).abs() / tol.clamp(min=1e-38), torch.zeros_like(want)).max())
+        check(worst <= 1.0, f"{label}: {name} gradient within rtol 1e-4 + atol 1e-5 of its columns' scale: {worst}")
+        ratio = max(ratio, worst)
+        del got, want, finite, scale, tol
+    rec = {"num_gaussians": n, "err_ratio": ratio, "eager_ms": cuda_ms(eager, 3, warmup=1),
+           "eager_profiler_ms": device_busy_ms(eager)}
+    del outs, leaves  # the eager graph, before the kernel's timing graph takes its memory
+    torch.cuda.empty_cache()
+    nbytes = kp.bytes_moved_backward(n, 3)
+    bound_ms = nbytes / PEAK_HBM_BYTES * 1e3
+    rec.update({**queued_kernel_ms(kernel, "preprocess_bwd_kernel"), "bytes": nbytes, "bound_ms": bound_ms})
+    rec["share_of_bound"] = bound_ms / rec["kernel_ms"]
+    return rec
+
+
 def preprocess_phase(dev, t_main: float):
-    """Phase 16: the preprocess kernel (``kernels/preprocess.py``,
-    ``csrc/preprocess.cu``) at the headline and the dense scene. At every
-    orbit8 pose (``orbit8_poses``), every output but rgb bitwise the eager path's and rgb
-    within ``kernels/preprocess.py``'s ``RGB_ATOL``. At the first pose: the
-    kernel's device ms in queued rounds (graphs of ``PREP_ITERS`` calls
-    replayed after a device spin, median and quartiles) and from the
-    profiler (a mean over the launches it recorded), beside its bytes bound;
-    the eager path's ms (CUDA events) and profiler ms; the device operations
-    of a grad-free request's preprocess (``graph_ops``: the kernel and the
-    two activations, at most 4, and one launch of the wrapper) and of the
-    eager path (``profiled_ops``); a grad-free request's and a training
-    step's stages and ``preprocess_kernel`` counter (1 and 0). Returns (the
-    phase's record, the kernel's launches over the phase)."""
+    """Phase 16: the preprocess kernels (``kernels/preprocess.py``,
+    ``csrc/preprocess.cu``) at the headline and the dense scene and at
+    ``recipe_5m``'s pool (the dense scene padded to 10,000,128 rows by
+    ``train/densify.py::init_pool``). At every orbit8 pose
+    (``orbit8_poses``), every forward output but rgb bitwise the eager
+    path's and rgb within ``kernels/preprocess.py``'s ``RGB_ATOL``. At the
+    first pose: the forward kernel's device ms (``queued_kernel_ms``)
+    beside its bytes bound; the eager path's ms (CUDA events) and profiler
+    ms; the device operations of a grad-free request's preprocess
+    (``graph_ops``: the kernel and the two activations, at most 4, and one
+    launch of the wrapper) and of the eager path (``profiled_ops``); the
+    backward kernel (``preprocess_backward_record``: gradients, times,
+    bound, the eager backward); a grad-free request's and a training step's
+    stages, ``preprocess_kernel`` counted 1 on both and
+    ``preprocess_bwd_kernel`` 1 on the step, and each kernel launched once
+    a step. Returns (the phase's record, the forward kernel's launches over
+    the phase)."""
     import torch
 
     import gsplat_tpu_torch as gs
+    from gsplat_tpu_torch.config import DensifyConfig
     from gsplat_tpu_torch.kernels import preprocess as kp
     from gsplat_tpu_torch.render.pipeline import preprocess_traced
+    from gsplat_tpu_torch.train.densify import init_pool
 
     t0 = time.perf_counter()
-    kp.preprocess_forward.launches = 0
+    kp.preprocess_forward.launches = kp.preprocess_backward.launches = 0
     orbit8 = orbit8_poses()
     out = {}
     for name, n, shift in (("headline_1m", NUM_GAUSSIANS, 0.0), ("dense_5m", REAL_N, REAL_SHIFT)):
@@ -2459,14 +2555,9 @@ def preprocess_phase(dev, t_main: float):
             def eager():
                 return kp.preprocess_plain(*inputs, cam, WIDTH, HEIGHT, 3, True)
 
-            graph = capture_graph(kernel, PREP_ITERS, warmup=3)
-            rounds = sorted(replay_ms(graph, PREP_ITERS, PREP_SLEEP_CYCLES) for _ in range(PREP_ROUNDS))
-            q1, med, q3 = statistics.quantiles(rounds, n=4)
-            del graph
+            rec.update(queued_kernel_ms(kernel, "preprocess_kernel"))
             nbytes = kp.bytes_moved(n, 3)
             bound_ms = nbytes / PEAK_HBM_BYTES * 1e3
-            prof_ms, prof_launches = profiled_kernel_ms(lambda: [kernel() for _ in range(PREP_PROFILE_CALLS)],
-                                                        "preprocess_kernel")
             eager_busy = device_busy_ms(eager)
             before = kp.preprocess_forward.launches
             ops = graph_ops(lambda: preprocess_traced(model, cam, WIDTH, HEIGHT, gs.RasterConfig()))
@@ -2475,14 +2566,13 @@ def preprocess_phase(dev, t_main: float):
             check(wrapper_launches == 2, f"{name}: the preprocess kernel launched once uncaptured, once captured: "
                                          f"{wrapper_launches}")
             rec.update({
-                "kernel_ms": med, "kernel_ms_quartiles": [q1, q3],
-                "kernel_profiler_ms": prof_ms, "kernel_profiler_launches": prof_launches,
-                "bytes": nbytes, "bound_ms": bound_ms, "share_of_bound": bound_ms / med,
+                "bytes": nbytes, "bound_ms": bound_ms, "share_of_bound": bound_ms / rec["kernel_ms"],
                 "eager_ms": cuda_ms(eager, 5, warmup=1), "eager_profiler_ms": eager_busy,
                 "request_preprocess_ops": ops,
                 "eager_preprocess_ops": profiled_ops(lambda: kp.preprocess_plain(
                     model.means, model.sh, model.quats, model.scales(), model.opacity(), cam, WIDTH, HEIGHT, 3, True)),
             })
+        rec["backward"] = preprocess_backward_record(model, cam, name)
         if name == "dense_5m":
             probe = gs.RasterConfig(tile_size=32, chunk_size=32, max_pairs=1 << 20)
             with torch.inference_mode():
@@ -2505,15 +2595,38 @@ def preprocess_phase(dev, t_main: float):
             rec["request"] = stage_breakdown(request)
             rec["request_ms"] = cuda_ms(request, 5)
             step()  # warm-up: SSIM's convolutions, the backward's buffers
+            before = kp.preprocess_forward.launches, kp.preprocess_backward.launches
+            step()
+            torch.cuda.synchronize()
+            rec["step_launches"] = {"preprocess_forward": kp.preprocess_forward.launches - before[0],
+                                    "preprocess_backward": kp.preprocess_backward.launches - before[1]}
+            check(rec["step_launches"] == {"preprocess_forward": 1, "preprocess_backward": 1},
+                  f"a training step launches each preprocess kernel once: {rec['step_launches']}")
             rec["step"] = stage_breakdown(step, runs=2)
+            rec["step_ms"] = cuda_ms(step, 3)
+            counters = rec["step"]["counters"]
             check(rec["request"]["counters"].get("preprocess_kernel") == 1, "a request counts preprocess_kernel 1")
-            check(rec["step"]["counters"].get("preprocess_kernel") == 0, "a training step counts preprocess_kernel 0")
+            check(counters.get("preprocess_kernel") == 1 and counters.get("preprocess_bwd_kernel") == 1,
+                  "a training step counts preprocess_kernel 1 and preprocess_bwd_kernel 1")
             del target
+            # recipe_5m's pool: the dense scene and its dead rows at the origin.
+            pool = init_pool(model, DensifyConfig())
+            with torch.inference_mode():
+                pool_inputs = (pool.means, pool.sh, pool.quats, pool.scales(), pool.opacity())
+                pool_rec = {"num_gaussians": pool.num_gaussians,
+                            **queued_kernel_ms(lambda: kp.preprocess_forward(*pool_inputs, cam, WIDTH, HEIGHT, 3,
+                                                                             True), "preprocess_kernel")}
+                pool_rec["bound_ms"] = kp.bytes_moved(pool.num_gaussians, 3) / PEAK_HBM_BYTES * 1e3
+                del pool_inputs
+            pool_rec["backward"] = preprocess_backward_record(pool, cam, "recipe_5m pool")
+            out["recipe_5m_pool"] = pool_rec
+            del pool
         out[name] = rec
         del model, inputs, cams
         torch.cuda.empty_cache()
     launches = kp.preprocess_forward.launches
-    out.update({"launches": launches, "phase_s": time.perf_counter() - t0, "elapsed_s": time.perf_counter() - t_main})
+    out.update({"launches": launches, "backward_launches": kp.preprocess_backward.launches,
+                "phase_s": time.perf_counter() - t0, "elapsed_s": time.perf_counter() - t_main})
     return out, launches
 
 
@@ -2535,7 +2648,7 @@ def main() -> int:
 
     import gsplat_tpu_torch as gs
     from gsplat_tpu_torch.kernels import build
-    from gsplat_tpu_torch.kernels.preprocess import preprocess_forward
+    from gsplat_tpu_torch.kernels.preprocess import preprocess_backward, preprocess_forward
     from gsplat_tpu_torch.kernels.raster_bwd import (
         backward_tiles, backward_tiles_carry, backward_tiles_plain, reduce_pair_grads,
     )
@@ -2745,15 +2858,17 @@ def main() -> int:
     before = {k: p.detach().clone() for k, p in model.named_parameters()}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    forward_tiles.launches = backward_tiles.launches = 0
+    forward_tiles.launches = backward_tiles.launches = preprocess_backward.launches = 0
     fit0 = time.perf_counter()
     model, history = trainer.fit(model, views)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - fit0
-    train_launches = {"raster_fwd": forward_tiles.launches, "raster_bwd": backward_tiles.launches}
+    train_launches = {"raster_fwd": forward_tiles.launches, "raster_bwd": backward_tiles.launches,
+                      "preprocess_bwd": preprocess_backward.launches}
     peak_bytes = torch.cuda.max_memory_allocated()
     check(len(history) == 3 and all(math.isfinite(h["loss"]) for h in history), f"finite losses: {history}")
-    check(train_launches == {"raster_fwd": 3, "raster_bwd": 3}, f"launches over 3 steps: {train_launches}")
+    check(train_launches == {"raster_fwd": 3, "raster_bwd": 3, "preprocess_bwd": 3},
+          f"launches over 3 steps: {train_launches}")
     check(trainer.raster == cfg, "no capacity resize at 1.5x demand")
     for k, p in model.named_parameters():
         check(not torch.equal(p.detach(), before[k]), f"parameter {k} changed")
@@ -3015,6 +3130,18 @@ def main() -> int:
                                                  "share_of_bound", "eager_ms", "eager_profiler_ms",
                                                  "request_preprocess_ops", "eager_preprocess_ops")}
                for name in ("headline_1m", "dense_5m")},
+            "recipe_5m_pool": {k: prep["recipe_5m_pool"][k] for k in ("num_gaussians", "kernel_ms", "bound_ms")},
+            "library_ms": None,
+        },
+        {
+            "name": "preprocess_bwd", "route": "cuda", "source": "gsplat_tpu_torch/csrc/preprocess.cu",
+            "replaces": None, "launches": train_launches["preprocess_bwd"],
+            "preprocess_phase_launches": prep["backward_launches"], "step_launches": prep["dense_5m"]["step_launches"],
+            **{name: {k: rec["backward"][k] for k in ("num_gaussians", "err_ratio", "kernel_ms", "kernel_ms_quartiles",
+                                                      "kernel_profiler_ms", "kernel_profiler_launches", "bound_ms",
+                                                      "share_of_bound", "eager_ms", "eager_profiler_ms")}
+               for name, rec in (("headline_1m", prep["headline_1m"]), ("dense_5m", prep["dense_5m"]),
+                                 ("recipe_5m_pool", prep["recipe_5m_pool"]))},
             "library_ms": None,
         },
     ]})

@@ -17,8 +17,9 @@ float step keeps the JAX package's operation order: one ulp of difference
 can flip an integer.
 
 The render path runs the fused :func:`preprocess_gaussians_from_params`
-where it takes a gradient or runs on the CPU, and the CUDA kernel of
-``kernels/preprocess.py`` (bitwise the same outputs) otherwise.
+on the CPU, and on the card the CUDA kernels of ``kernels/preprocess.py``
+(bitwise the same outputs; their backward the same gradients up to the
+order of its sums).
 The step functions beside it (:func:`project_to_camera_space`,
 :func:`project_to_screen`, :func:`ewa_project_covariance`,
 :func:`conic_from_cov2d`, :func:`covering_bbox`,

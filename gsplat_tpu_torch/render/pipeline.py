@@ -22,7 +22,9 @@ from typing import Tuple
 import torch
 
 from gsplat_tpu_torch.config import RasterConfig
-from gsplat_tpu_torch.kernels.preprocess import preprocess_forward, preprocess_plain, takes_kernel
+from gsplat_tpu_torch.kernels.preprocess import (
+    needs_grad, preprocess_autograd, preprocess_forward, preprocess_plain, takes_kernel,
+)
 from gsplat_tpu_torch.kernels.raster import rasterize_tiles
 from gsplat_tpu_torch.models.gaussians import GaussianModel
 from gsplat_tpu_torch.ops import binning
@@ -45,20 +47,25 @@ def preprocess_traced(
     screen_offset=None,
 ) -> Preprocessed:
     """Per-gaussian preprocess for one camera (rasterize.py:353-425): the
-    kernel of ``kernels/preprocess.py`` where no gradient is taken
-    (``takes_kernel``), the eager autograd path otherwise. Counts
-    ``preprocess_kernel`` 1 or 0 for the tracer."""
+    kernels of ``kernels/preprocess.py`` where ``takes_kernel`` holds (CUDA
+    float32), through their autograd Function where a gradient is taken;
+    the eager autograd path otherwise. Counts ``preprocess_kernel`` 1 or 0
+    for the tracer, and where the eager path takes a gradient
+    ``preprocess_bwd_kernel`` 0 (the Function's backward counts 1)."""
     # While recording, the backward of what the preprocess reads from the
     # model closes the span ``preprocess_bwd``.
     inputs = stages.closes_backward(
         "preprocess_bwd", model.means, model.sh, model.quats, model.scales(), model.opacity()
     )
-    args = (*inputs, cam, width, height, cfg.sh_degree, cfg.strict_parity)
-    if takes_kernel((*inputs, *cam), screen_offset):
+    args = (*inputs, cam, width, height, cfg.sh_degree, cfg.strict_parity, screen_offset)
+    grad = needs_grad((*inputs, screen_offset))
+    if takes_kernel(inputs, cam, screen_offset):
         stages.count("preprocess_kernel", 1)
-        return preprocess_forward(*args)
+        return preprocess_autograd(*args) if grad else preprocess_forward(*args)
     stages.count("preprocess_kernel", 0)
-    return preprocess_plain(*args, screen_offset)
+    if grad:
+        stages.count("preprocess_bwd_kernel", 0)
+    return preprocess_plain(*args)
 
 
 def _camera_arrays(model: GaussianModel, camera: CameraParams) -> CameraArrays:

@@ -27,8 +27,21 @@ inputs (``_synthetic``) probe the edges of both, with the forward held
 bitwise to its plain version.
 
 The preprocess kernel (``kernels/preprocess.py``) is held to the eager
-path it replaces where no gradient is taken: every output but rgb bitwise,
-rgb within ``kernels/preprocess.py``'s ``RGB_ATOL`` (the order of its sums).
+path it replaces: every output but rgb bitwise, rgb within
+``kernels/preprocess.py``'s ``RGB_ATOL`` (the order of its sums), under a
+gradient and with a screen offset too. Its backward kernel recomputes the
+forward's intermediates bitwise and sums each gradient's terms in another
+order than autograd through the eager path (FMA-contracted, chain-rule
+products in registers): each gradient differs by a few roundings of its
+largest terms, which exceeds the result where terms cancel, so the
+gradients are held to the eager path's autograd at the backward
+compositor's tolerance, rtol 1e-4 + atol 1e-5 of each column's largest
+finite magnitude, and the screen offset's bitwise (it is the screen means'
+cotangent). The colour's clamp has kinks at 0 and 1 (half the gradient
+there, none beyond), and the two paths' colours differ by up to
+``RGB_ATOL``: where either colour lies within it of a kink, the random
+cotangent's rgb entry is zero, and the kinks are held on their own, at
+colours both paths place exactly.
 
 Tiles above 64 run as pixel groups of one thread block each: the forward
 with early stop on takes a second launch, the resume, counted apart
@@ -229,25 +242,237 @@ def test_preprocess_kernel_ragged_counts(device, n):
 
 def test_render_takes_the_preprocess_kernel_without_grad(device):
     """A request under ``no_grad`` launches the preprocess kernel once and
-    counts ``preprocess_kernel`` 1; under grad, no launch and 0. The frames
-    differ only through rgb's last bits: T bitwise, colour within
-    ``RGB_ATOL``."""
-    from gsplat_tpu_torch.kernels.preprocess import RGB_ATOL, preprocess_forward
+    counts ``preprocess_kernel`` 1; under grad too, and its backward then
+    launches the backward kernel once and counts ``preprocess_bwd_kernel``
+    1. The frames are bitwise the same: one kernel renders both."""
+    from gsplat_tpu_torch.kernels.preprocess import preprocess_backward, preprocess_forward
     from gsplat_tpu_torch.utils import stages
 
     model, camera = scene(device)
     seen, frames = [], []
     for grad in (False, True):
-        before = preprocess_forward.launches
+        before = preprocess_forward.launches, preprocess_backward.launches
         with torch.set_grad_enabled(grad), stages.record_stages() as rec:
             img, trans = tgs.render(model, camera, CFG)
+            if grad:
+                torch.autograd.grad((img * img).sum() + trans.sum(), list(model.parameters()))
         torch.cuda.synchronize()
-        seen.append(([v for name, _, v in rec.counter_values() if name == "preprocess_kernel"],
-                     preprocess_forward.launches - before))
+        counts = rec.counter_values()
+        seen.append(([v for name, _, v in counts if name == "preprocess_kernel"],
+                     [v for name, _, v in counts if name == "preprocess_bwd_kernel"],
+                     preprocess_forward.launches - before[0], preprocess_backward.launches - before[1]))
         frames.append((img.detach(), trans.detach()))
-    assert seen == [([1], 1), ([0], 0)]
-    assert torch.equal(frames[0][1], frames[1][1])
-    torch.testing.assert_close(frames[0][0], frames[1][0], rtol=0, atol=RGB_ATOL)
+    assert seen == [([1], [], 1, 0), ([1], [1], 1, 1)]
+    assert torch.equal(frames[0][0], frames[1][0]) and torch.equal(frames[0][1], frames[1][1])
+
+
+def _close_by_column(got, want, name):
+    """``got`` within rtol 1e-4 + atol 1e-5 of each column's largest finite
+    magnitude of ``want`` (columns: every entry past the row index), with
+    the same entries not finite."""
+    g, w = got.reshape(got.shape[0], -1), want.reshape(want.shape[0], -1)
+    finite = torch.isfinite(w)
+    assert torch.equal(torch.isfinite(g), finite), name
+    scale = torch.where(finite, w.abs(), torch.zeros_like(w)).amax(0, keepdim=True)
+    err = (g - w).abs()
+    bad = finite & ~(err <= 1e-4 * w.abs() + 1e-5 * scale)
+    assert not bool(bad.any()), (name, int(bad.sum()), float(err[bad].max()) if bad.any() else 0.0)
+
+
+def _bench_scene(device, n, seed=0):
+    """``n`` splats of the benchmark's scene distribution
+    (``chip_smoke.build_scene`` at the dense scale shift 1.9, drawn with
+    numpy): the camera at the origin looking down +z, z in [2, 10]."""
+    rng = np.random.default_rng(seed)
+    z = rng.uniform(2.0, 10.0, n)
+    arrays = {
+        "means": np.stack([rng.uniform(-0.9, 0.9, n) * z, rng.uniform(-0.55, 0.55, n) * z, z], 1),
+        "log_scales": rng.uniform(-5.2, -3.6, (n, 3)) + 1.9,
+        "quats": rng.normal(size=(n, 4)),
+        "opacity_logits": rng.uniform(-2.0, 2.0, n),
+        "sh": rng.normal(size=(n, 16, 3)) * 0.2,
+    }
+    return tgs.GaussianModel.from_arrays({k: v.astype(np.float32) for k, v in arrays.items()}, device=device)
+
+
+def _orbit8_cameras(width, height):
+    """The cameras of the benchmark's ``orbit8`` poses (``splatbench/scene.py``)."""
+    from splatbench.scene import camera_params, poses
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "splatbench", "traffic", "render.json")) as f:
+        return [camera_params(width, height, yaw, shift) for yaw, shift in poses(json.load(f))]
+
+
+def _check_preprocess_grads(device, model, cameras, degree, offsets=(False, True), seed=0):
+    """The kernel pair's gradients of means, SH, quats, log-scales and the
+    screen offset against the eager path's autograd, at each camera, for a
+    random cotangent of the packed features (so the backward reads column
+    slices of its ``[N+1, 16]`` cotangent) and of the depth, with and
+    without a screen offset; one backward launch each. Returns the last
+    pair of gradient lists."""
+    from gsplat_tpu_torch.kernels import preprocess as kp
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    n = model.num_gaussians
+    leaves = [model.means, model.sh, model.quats, model.log_scales]
+    for i, camera in enumerate(cameras):
+        w, h = camera.width, camera.height
+        cam = tgs.CameraArrays.from_params(camera, device=device)
+        with torch.no_grad():
+            ins = (model.means, model.sh, model.quats, model.scales(), model.opacity())
+            colours = [kp.preprocess_forward(*ins, cam, w, h, degree, True).rgb,
+                       kp.preprocess_plain(*ins, cam, w, h, degree, True).rgb]
+        kink = torch.zeros((n, 3), dtype=torch.bool, device=device)
+        for c in colours:
+            kink |= (c <= kp.RGB_ATOL) | (c >= 1.0 - kp.RGB_ATOL)
+        v_feat = torch.randn((n + 1, 16), generator=g, device=device)
+        v_feat[:n, 6:9][kink] = 0.0
+        v_depth = torch.randn(n, generator=g, device=device)
+        for with_offset in offsets:
+            offset = torch.randn((n, 2), generator=g, device=device).requires_grad_() if with_offset else None
+            grads = []
+            for fn in (kp.preprocess_autograd, kp.preprocess_plain):
+                before = kp.preprocess_backward.launches
+                prep = fn(model.means, model.sh, model.quats, model.scales(), model.opacity(), cam, w, h, degree,
+                          True, offset)
+                loss = (binning.pack_features(prep) * v_feat).sum() + (prep.depth * v_depth).sum()
+                grads.append(torch.autograd.grad(loss, leaves + ([offset] if with_offset else [])))
+                torch.cuda.synchronize()
+                assert kp.preprocess_backward.launches - before == (fn is kp.preprocess_autograd)
+            got, want = grads
+            for name, a, b in zip(("means", "sh", "quats", "log_scales"), got, want):
+                _close_by_column(a, b, f"{name}, degree {degree}, camera {i}, offset {with_offset}")
+            if with_offset:
+                assert torch.equal(got[-1], want[-1])
+    return got, want
+
+
+@pytest.mark.parametrize("degree", [0, 1, 2, 3])
+def test_preprocess_grads_match_eager_at_orbit8(device, degree):
+    """The kernel pair's gradients at the benchmark's eight ``orbit8`` poses
+    (1920x1080) over 20,000 splats of its scene distribution, with and
+    without a screen offset, at every SH degree."""
+    _check_preprocess_grads(device, _bench_scene(device, 20_000), _orbit8_cameras(1920, 1080), degree, seed=degree)
+
+
+@pytest.mark.parametrize("degree", [0, 3])
+@pytest.mark.parametrize("n", [4133, 1, 127, 129])
+def test_preprocess_grads_on_edge_rows(device, n, degree):
+    """The kernel pair's gradients on ``_edge_scene``'s rows (behind the near
+    plane and at depth 0, zero and huge scales, axis-aligned quaternions,
+    opacity at and below 1/255, bboxes across the screen's edges) before
+    both of its cameras, at a count that is not a multiple of the block's
+    128, one gaussian, and one short of and one past a block."""
+    model, cameras = _edge_scene(device, n, seed=n)
+    _check_preprocess_grads(device, model, cameras, degree, seed=n)
+
+
+def test_preprocess_grads_for_dead_pool_rows(device):
+    """A pool's dead rows (``models/gaussians.py::pad_model``: at the origin,
+    identity quaternion, log-scale 0, the dead opacity logit), seen from a
+    camera at the origin: depth 0, so culled, and a zero view direction.
+    Their gradients are finite and the eager path's, the geometry's (quats,
+    log-scales) exactly zero."""
+    from gsplat_tpu_torch.models.gaussians import pad_model
+
+    live, cameras = _edge_scene(device, 900, seed=3)
+    model = pad_model(live, 1024)
+    model = tgs.GaussianModel.from_arrays(model.to_arrays(), device=device)  # leaves again
+    fov = (cameras[0].fov_x, cameras[0].fov_y)
+    origin = tgs.CameraParams(96, 64, *fov, cameras[0].focal_x, cameras[0].focal_y, (1.0, 0.0, 0.0, 0.0),
+                              (0.0, 0.0, 0.0))
+    for degree in (0, 3):
+        got, want = _check_preprocess_grads(device, model, [origin], degree, seed=degree)
+        for a, b in zip(got, want):
+            assert bool(torch.isfinite(a[900:]).all() and torch.isfinite(b[900:]).all())
+        for a, b in zip(got[2:4], want[2:4]):  # quats, log-scales
+            assert not bool(a[900:].any()) and not bool(b[900:].any())
+
+
+def test_preprocess_grads_at_clamped_colours(device):
+    """Colours both paths place exactly (the DC coefficient alone, C0 * sh0
+    + 0.5) at 0 and 1 take half the rgb cotangent (torch.minimum / maximum),
+    past them none, inside all of it: the DC coefficient's gradient C0 / 2,
+    0 and C0 on both paths, and the rows' SH and means gradients as the
+    eager path's (none at all past the clamp)."""
+    from gsplat_tpu_torch.kernels import preprocess as kp
+
+    model, cameras = _edge_scene(device, 256, seed=5)
+    arrays = model.to_arrays()
+    c0 = np.float32(0.28209479177387814)
+    targets = [-0.5, 0.5, -0.75, 0.75, 0.0, -0.5, 0.5]  # C0 * sh0: colours 0, 1, past 0, past 1, 0.5, 0, 1
+    for row, target in enumerate(targets, start=64):
+        v = np.float32(target / float(c0))
+        while np.float32(c0 * v) != np.float32(target):  # the float32 sh0 whose product is the target
+            v = np.nextafter(v, np.float32(np.inf) if np.float32(c0 * v) < target else np.float32(-np.inf))
+        arrays["sh"][row] = 0.0
+        arrays["sh"][row, 0, :] = v
+    model = tgs.GaussianModel.from_arrays(arrays, device=device)
+    rows = slice(64, 64 + len(targets))
+    cam = tgs.CameraArrays.from_params(cameras[0], device=device)
+    grads, colours = [], []
+    for fn in (kp.preprocess_autograd, kp.preprocess_plain):
+        prep = fn(model.means, model.sh, model.quats, model.scales(), model.opacity(), cam, 96, 64, 3, True)
+        colours.append(prep.rgb[rows].detach())
+        grads.append(torch.autograd.grad(prep.rgb[rows].sum(), [model.sh, model.means]))
+    expected = torch.tensor([0.0, 1.0, 0.0, 1.0, 0.5, 0.0, 1.0], device=device)[:, None].expand(-1, 3)
+    assert torch.equal(colours[0], expected) and torch.equal(colours[1], expected)
+    half = float(c0) * 0.5
+    want_dc = torch.tensor([half, half, 0.0, 0.0, float(c0), half, half], device=device)[:, None].expand(-1, 3)
+    for (g_sh, g_means), name in zip(grads, ("kernel", "eager")):
+        torch.testing.assert_close(g_sh[rows, 0, :], want_dc, rtol=1e-6, atol=0, msg=name)
+        assert not bool(g_sh[64 + 2 : 64 + 4].any()) and not bool(g_means[64 + 2 : 64 + 4].any()), name
+    _close_by_column(grads[0][0][rows], grads[1][0][rows], "sh")
+    _close_by_column(grads[0][1][rows], grads[1][1][rows], "means")
+
+
+def test_preprocess_forward_under_grad_is_the_grad_free_kernel(device):
+    """Under a gradient the Function's forward is the grad-free kernel: every
+    output bitwise, rgb too; with a screen offset, every output but rgb
+    bitwise the eager path's, the means shifted by it."""
+    from gsplat_tpu_torch.kernels import preprocess as kp
+
+    model, cameras = _edge_scene(device, 4133, seed=2)
+    inputs = (model.means, model.sh, model.quats, model.scales(), model.opacity())
+    offset = torch.randn((4133, 2), device=device) * 4.0
+    for camera in cameras:
+        cam = tgs.CameraArrays.from_params(camera, device=device)
+        for off in (None, offset):
+            got = kp.preprocess_autograd(*inputs, cam, 96, 64, 3, True, off)
+            with torch.no_grad():
+                free = kp.preprocess_forward(*inputs, cam, 96, 64, 3, True, off)
+                want = kp.preprocess_plain(*inputs, cam, 96, 64, 3, True, off)
+            assert got.screen_means.requires_grad and got.opacity is inputs[4]
+            for name in want._fields:
+                assert kp.same_bits(getattr(got, name).detach(), getattr(free, name)), name
+                if name != "rgb":
+                    assert kp.same_bits(getattr(got, name).detach(), getattr(want, name)), name
+            torch.testing.assert_close(got.rgb.detach(), want.rgb, rtol=0, atol=kp.RGB_ATOL)
+
+
+def test_preprocess_backward_reads_any_cotangent_layout(device):
+    """Cotangents that are not column slices (autograd's expanded ones of a
+    sum, a channel of rgb alone, none for the conic) give the eager path's
+    gradients; the backward wrapper refuses a cotangent of another shape."""
+    from gsplat_tpu_torch.kernels import preprocess as kp
+
+    model, cameras = _edge_scene(device, 700, seed=4)
+    cam = tgs.CameraArrays.from_params(cameras[1], device=device)
+    leaves = [model.means, model.sh, model.quats, model.log_scales]
+    grads = []
+    for fn in (kp.preprocess_autograd, kp.preprocess_plain):
+        prep = fn(model.means, model.sh, model.quats, model.scales(), model.opacity(), cam, 96, 64, 3, True)
+        loss = prep.screen_means.sum() + (prep.rgb[:, 1] * prep.depth.detach()).sum()
+        grads.append([g if g is not None else torch.zeros_like(x)  # what reads quats is not in this loss
+                      for g, x in zip(torch.autograd.grad(loss, leaves, allow_unused=True), leaves)])
+    for name, a, b in zip(("means", "sh", "quats", "log_scales"), *grads):
+        _close_by_column(a, b, name)
+    inputs = (model.means, model.sh, model.quats, model.scales())
+    v = [torch.zeros((700, k), device=device) for k in (2, 3, 3)]
+    v[1] = torch.zeros((700, 4), device=device)
+    with pytest.raises(ValueError, match="v_conics"):
+        kp.preprocess_backward(*inputs, cam, 96, 64, 3, *v)
 
 
 def test_preprocess_kernel_rejects_bad_inputs(device):
@@ -420,7 +645,7 @@ def test_sliced_render_on_card_matches_cpu(device):
     torch.testing.assert_close(trans.cpu(), c_trans, rtol=RTOL, atol=ATOL)
     for got, want in zip(grads, c_grads):
         torch.testing.assert_close(got.cpu(), want, rtol=2e-3, atol=5e-5 * float(want.abs().max()))
-    single = tgs.render(model, camera, CFG)  # under grad too: the same (eager) preprocess
+    single = tgs.render(model, camera, CFG)  # under grad too: the same preprocess (the kernel pair)
     assert torch.equal(img.detach(), single[0].detach()) and torch.equal(trans.detach(), single[1].detach())
 
 
