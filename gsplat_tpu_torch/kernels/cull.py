@@ -15,8 +15,9 @@ Nothing on the render or training path calls this module's culling
 functions: the kernels take their rects themselves (the wrappers call only
 :func:`check_tiling` and :func:`group_layout`). The CPU tests check with
 them that the rect is conservative, the culling exact and the group walk
-bitwise the tile's, and ``chip_smoke.py`` counts with them the pair-pixels
-and warp evaluations a culled walk makes (:func:`cull_counts`).
+bitwise the tile's, and ``tools/card.py::pair_pixels`` counts with them
+the pair-pixels and warp evaluations a culled walk makes
+(:func:`cull_counts`).
 """
 
 from __future__ import annotations

@@ -44,7 +44,7 @@ sys.path.insert(0, ROOT)  # bench.py
 sys.path.insert(0, TOOLS)
 import bench  # noqa: E402
 import bench_torch  # noqa: E402
-from chip_smoke import json_fields  # noqa: E402
+from card import json_fields  # noqa: E402
 
 SMALL = dict(WIDTH=128, HEIGHT=96, NUM_GAUSSIANS=800, PAIR_SWEEP_SHIFTS=[0.8], REAL_DENSITY_N=800,
              REAL_DENSITY_SHIFT=1.0, REAL_DENSITY_SLICE=512, REAL_DENSITY_REDUCE=1024, RES_4K=(160, 128),
@@ -171,7 +171,7 @@ def test_no_card_is_device_unreachable():
 
 
 def test_bench_imports_no_jax():
-    for path in (os.path.join(TOOLS, "bench_torch.py"), os.path.join(ROOT, "chip_smoke.py")):
+    for path in (os.path.join(TOOLS, "bench_torch.py"), os.path.join(TOOLS, "card.py")):
         with open(path) as f:
             tree = ast.parse(f.read())
         names = [a.name for node in ast.walk(tree) if isinstance(node, ast.Import) for a in node.names]

@@ -364,16 +364,22 @@ def test_cull_counts_follow_the_padded_grid(tile):
         assert int(warps[i]) == want_warps
 
 
-def test_chip_smoke_counts_match_brute_force(binned_dense):
-    """``chip_smoke.pair_pixels`` (the counts behind the kernels' bounds)
-    against a walk over every slot and pixel, and the bounds it feeds."""
-    import chip_smoke
+def test_compositor_counts_match_brute_force(binned_dense):
+    """``tools/card.py``'s ``pair_pixels`` (the counts behind the kernels'
+    bounds) against a walk over every slot and pixel, and the bounds it
+    feeds, with ``splatbench/counts.py``'s peaks and operations."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tools"))
+    import card
+    from splatbench import counts as C
 
     args, ntx, _ = binned_dense
     feat, pairs, start, count, tile_ids = args
     cfg = WALK_CFG
     done = torch.tensor([1, 3, 2, 40, 0, 5], dtype=torch.int32)
-    counts = chip_smoke.pair_pixels(args, ntx, cfg, done, chunk=97)
+    counts = card.pair_pixels(args, ntx, cfg, done, chunk=97)
     walked = rect_pixels = passed = warps = 0
     for t in range(len(tile_ids)):
         ox, oy = (t % ntx) * 16, (t // ntx) * 16
@@ -390,16 +396,15 @@ def test_chip_smoke_counts_match_brute_force(binned_dense):
         warps += sum(len(set(warp_of[m].tolist())) for m in in_rect)
     assert counts == {"walked": walked, "rect": rect_pixels, "passed": passed, "warp_pairs": warps}
     assert passed <= rect_pixels < walked and warps * 32 >= rect_pixels
-    bound = chip_smoke.compositor_bound(counts, 10 ** 6, backward=True)
+    bound = card.compositor_bound(counts, 10 ** 6, backward=True)
     assert bound["bound_ms"] <= bound["bound_unculled_ms"]
-    assert bound["fp32_ms"] == (rect_pixels * chip_smoke.GATE_FP32_OPS + passed * chip_smoke.BWD_PASSED_FP32_OPS) \
-        / chip_smoke.PEAK_FP32_OPS * 1e3
-    fields = chip_smoke.bound_fields(bound, 2.0)
+    assert bound["fp32_ms"] == (rect_pixels * C.GATE_OPS + passed * C.BWD_PASSED_OPS) / C.PEAK_FP32_OPS * 1e3
+    fields = card.bound_fields(bound, 2.0)
     assert fields["share_of_bound"] == bound["bound_ms"] / 2.0 and fields["warp_pairs"] == warps
     assert fields["share_of_bound_unculled"] == bound["bound_unculled_ms"] / 2.0
     report = ["ptxas info    : Used 62 registers, used 1 barriers, 400 bytes cmem[0]",
               "ptxas info    : 8 bytes stack frame, 4 bytes spill stores, 12 bytes spill loads"]
-    assert chip_smoke.ptxas_resources(report) == {"registers": 62, "spill_stores": 4, "spill_loads": 12}
+    assert card.ptxas_resources(report) == {"registers": 62, "spill_stores": 4, "spill_loads": 12}
 
 
 GROUP_W, GROUP_H = 160, 120

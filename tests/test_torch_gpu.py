@@ -49,12 +49,20 @@ with early stop on takes a second launch, the resume, counted apart
 group order. ``test_large_tiles_match_plain`` holds all four kernels to
 their plain versions there, on a frame smaller than the largest tiles, so
 that whole groups lie outside it.
+
+Some tests also take full-size cases (``full_size``): the benchmark's
+synthetic scenes (``tools/card.py``) at 1920x1080, the headline's 1M
+gaussians in exact mode at tiles 16 to 128, and the dense scene's 5M at
+the real-density settings, where tiles hold thousands of pairs. They run
+with the rest under ``-m gpu``.
 """
 
 import dataclasses
 import json
 import math
 import os
+import sys
+from typing import NamedTuple
 
 import numpy as np
 import pytest
@@ -66,6 +74,10 @@ from gsplat_tpu_torch.kernels.raster_bwd import walk_state
 from gsplat_tpu_torch.kernels.raster_fwd import forward_tiles, forward_tiles_carry, forward_tiles_plain
 from gsplat_tpu_torch.ops import binning
 from gsplat_tpu_torch.render.pipeline import preprocess
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(ROOT, "tools"))
+import card  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 RTOL, ATOL = 1e-5, 1e-6
@@ -100,31 +112,82 @@ def scene(device, n=800, grow=2.0, seed=6, width=WIDTH, height=HEIGHT):
 
 
 @pytest.fixture(scope="module")
-def binned(device):
-    model, camera = scene(device)
+def full_size(device):
+    """The full-size cases at 1920x1080, drawn once each:
+    ``full_size(kind, tile_size=32, sliced=False)`` gives (model, camera,
+    config). ``"headline"``: 1M gaussians of the benchmark's synthetic scene
+    at the bench pose, tile ``tile_size``, chunk 32, pair block 128, SH
+    degree 3, exact mode and strict parity, pair capacity 1.5x the view's
+    demand at that tile (``tools/bench_torch.py::sized_capacity``); sliced,
+    2^17 pairs a depth slice. ``"dense"``: 5M gaussians at scale shift 1.9
+    with the real-density settings, early stop 1e-4 and capacity 1.1x the
+    demand; sliced, 2^19 pairs a slice with a 2^20-pair reduction, else the
+    single sort with a reduction of a quarter of the capacity."""
+    import bench_torch
+
+    models = {}
+    camera = card.camera_params(card.WIDTH, card.HEIGHT, 0.0, 0.0)
+    cam = tgs.CameraArrays.from_params(camera, device=device)
+
+    def make(kind, tile_size=32, sliced=False):
+        dense = kind == "dense"
+        if kind not in models:
+            models[kind] = card.build_scene(*((card.REAL_N, card.REAL_SHIFT) if dense else (card.NUM_GAUSSIANS, 0.0)),
+                                            device)
+        model = models[kind]
+        capacity, _ = bench_torch.sized_capacity(model, cam, 1.1 if dense else 1.5, camera.width, camera.height,
+                                                 tile_size)
+        cfg = tgs.RasterConfig(tile_size=tile_size, chunk_size=32, pair_block=128, max_pairs=capacity, sh_degree=3,
+                               early_stop_transmittance=1e-4 if dense else 0.0, strict_parity=True)
+        if dense:
+            cfg = dataclasses.replace(cfg, slice_pairs=card.REAL_SLICE if sliced else 0,
+                                      reduce_pairs=card.REAL_REDUCE if sliced else capacity // 4)
+        elif sliced:
+            cfg = dataclasses.replace(cfg, slice_pairs=1 << 17)
+        return model, camera, cfg
+
+    return make
+
+
+class Binned(NamedTuple):
+    args: tuple  # feat, pair_gaussian, tile_start, tile_count, tile_ids
+    ntx: int
+    counts: torch.Tensor  # gaussian_counts
+    cfg: tgs.RasterConfig
+    width: int
+    height: int
+
+
+@pytest.fixture(scope="module")
+def binned(request, device, full_size):
+    """The compositors' inputs for one view, binned by the port: the small
+    48x32 frame at ``CFG``, or the full-size case an indirect parameter
+    names (``"headline"``, or ``"dense"`` single-sort)."""
+    kind = getattr(request, "param", "small")
+    model, camera, cfg = (*scene(device), CFG) if kind == "small" else full_size(kind)
     with torch.no_grad():
-        prep = preprocess(model, camera, CFG)
-        bins = binning.bin_gaussians(prep, WIDTH, HEIGHT, CFG.tile_size, CFG.max_pairs, align=CFG.pair_block)
-        ntx = -(-WIDTH // CFG.tile_size)
-        tile_ids = torch.arange(ntx * -(-HEIGHT // CFG.tile_size), dtype=torch.int32, device=device)
-        return (binning.pack_features(prep), bins.pair_gaussian, bins.tile_start, bins.tile_count, tile_ids), ntx, \
-            bins.gaussian_counts
+        args, bins, ntx = card.binned_inputs(model, camera, cfg)
+    return Binned(args, ntx, bins.gaussian_counts, cfg, camera.width, camera.height)
 
 
-@pytest.mark.parametrize("threshold", [0.0, 1e-4, 0.3])
+@pytest.mark.parametrize("binned,threshold", [
+    *(("small", t) for t in (0.0, 1e-4, 0.3)),
+    ("headline", 0.0), ("headline", 0.3),  # at 1e-4 no headline tile stops: a pair a gaussian leaves T above it
+    ("dense", 1e-4),  # the real-density setting
+], indirect=["binned"])
 def test_kernel_matches_plain(binned, threshold):
-    args, ntx, _ = binned
-    cfg = dataclasses.replace(CFG, early_stop_transmittance=threshold)
+    args, ntx, _, base, w, h = binned
+    cfg = dataclasses.replace(base, early_stop_transmittance=threshold)
     before = forward_tiles.launches
-    got = forward_tiles(*args, ntx, cfg, WIDTH, HEIGHT)
+    got = forward_tiles(*args, ntx, cfg, w, h)
     torch.cuda.synchronize()
     assert forward_tiles.launches == before + 1
-    want = forward_tiles_plain(*args, ntx, cfg, WIDTH, HEIGHT)
+    want = forward_tiles_plain(*args, ntx, cfg, w, h)
     torch.testing.assert_close(got[0], want[0], rtol=RTOL, atol=ATOL)
     torch.testing.assert_close(got[1], want[1], rtol=RTOL, atol=ATOL)
     torch.testing.assert_close(got[2], want[2], rtol=0, atol=0)
     if threshold > 0:
-        assert (got[2] < -(-args[3] // CFG.pair_block)).any(), "some tile should stop early"
+        assert (got[2] < -(-args[3] // cfg.pair_block)).any(), "some tile should stop early"
 
 
 def test_render_on_card_matches_oracle(device):
@@ -140,7 +203,7 @@ def test_render_on_card_matches_oracle(device):
 
 
 def test_kernel_rejects_bad_inputs(binned):
-    (feat, *rest), ntx, _ = binned
+    (feat, *rest), ntx = binned[:2]
     with pytest.raises(ValueError, match="pair_gaussian"):
         forward_tiles(feat, rest[0].long(), *rest[1:], ntx, CFG)
     with pytest.raises(ValueError, match="feat"):
@@ -240,20 +303,37 @@ def test_preprocess_kernel_ragged_counts(device, n):
     _check_preprocess(device, n, 3, True)
 
 
-def test_render_takes_the_preprocess_kernel_without_grad(device):
+@pytest.mark.parametrize("case", [
+    pytest.param(None, id="small"),
+    pytest.param(("headline", 32, False), id="headline"),
+    *(pytest.param(("headline", ts, sliced), id=f"headline-tile{ts}{'-sliced' if sliced else ''}")
+      for ts in (16, 64, 128) for sliced in (False, True)),
+    pytest.param(("dense", 32, True), id="dense-sliced"),
+])
+def test_render_takes_the_preprocess_kernel_without_grad(device, full_size, case):
     """A request under ``no_grad`` launches the preprocess kernel once and
     counts ``preprocess_kernel`` 1; under grad too, and its backward then
     launches the backward kernel once and counts ``preprocess_bwd_kernel``
-    1. The frames are bitwise the same: one kernel renders both."""
+    1. The frames are bitwise the same: one kernel renders both. The
+    compositors launch as the path plans: single-sort, one forward a
+    request and one backward a step; depth-sliced, one carry forward a
+    slice (the ``slices`` counter) and as many carry backwards a step, and
+    nothing else; no pair past the capacity. At the full-size cases
+    (``full_size``) too; there the headline's frame at every tiling,
+    single-sort and sliced, is bitwise its single-sort frame at tile 32
+    (exact mode: every pixel composites the same gaussians in the same
+    order)."""
     from gsplat_tpu_torch.kernels.preprocess import preprocess_backward, preprocess_forward
     from gsplat_tpu_torch.utils import stages
 
-    model, camera = scene(device)
+    model, camera, cfg = (*scene(device), CFG) if case is None else full_size(*case)
+    compositors = (forward_tiles, backward_tiles, forward_tiles_carry, backward_tiles_carry)
     seen, frames = [], []
     for grad in (False, True):
         before = preprocess_forward.launches, preprocess_backward.launches
+        k_before = [k.launches for k in compositors]
         with torch.set_grad_enabled(grad), stages.record_stages() as rec:
-            img, trans = tgs.render(model, camera, CFG)
+            img, trans = tgs.render(model, camera, cfg)
             if grad:
                 torch.autograd.grad((img * img).sum() + trans.sum(), list(model.parameters()))
         torch.cuda.synchronize()
@@ -261,9 +341,20 @@ def test_render_takes_the_preprocess_kernel_without_grad(device):
         seen.append(([v for name, _, v in counts if name == "preprocess_kernel"],
                      [v for name, _, v in counts if name == "preprocess_bwd_kernel"],
                      preprocess_forward.launches - before[0], preprocess_backward.launches - before[1]))
+        slices = sum(v for name, _, v in counts if name == "slices")
+        launched = tuple(k.launches - b for k, b in zip(compositors, k_before))
+        assert launched == ((0, 0, slices, slices * grad) if cfg.slice_pairs else (1, int(grad), 0, 0)), launched
+        assert (slices > 0) == (cfg.slice_pairs > 0), slices
+        assert sum(v for name, _, v in counts if name == "overflow") == 0  # no pair beyond the capacity
         frames.append((img.detach(), trans.detach()))
     assert seen == [([1], [], 1, 0), ([1], [1], 1, 1)]
     assert torch.equal(frames[0][0], frames[1][0]) and torch.equal(frames[0][1], frames[1][1])
+    img, trans = frames[0]
+    assert bool(torch.isfinite(img).all()) and 0.0 <= float(trans.min()) <= float(trans.max()) <= 1.0
+    if case is not None and case[0] == "headline":
+        with torch.no_grad():
+            want = tgs.render(*full_size("headline"))
+        assert torch.equal(img, want[0]) and torch.equal(trans, want[1])
 
 
 def _close_by_column(got, want, name):
@@ -281,8 +372,8 @@ def _close_by_column(got, want, name):
 
 def _bench_scene(device, n, seed=0):
     """``n`` splats of the benchmark's scene distribution
-    (``chip_smoke.build_scene`` at the dense scale shift 1.9, drawn with
-    numpy): the camera at the origin looking down +z, z in [2, 10]."""
+    (``card.build_scene`` at the dense scale shift 1.9, drawn with numpy):
+    the camera at the origin looking down +z, z in [2, 10]."""
     rng = np.random.default_rng(seed)
     z = rng.uniform(2.0, 10.0, n)
     arrays = {
@@ -299,8 +390,7 @@ def _orbit8_cameras(width, height):
     """The cameras of the benchmark's ``orbit8`` poses (``splatbench/scene.py``)."""
     from splatbench.scene import camera_params, poses
 
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    with open(os.path.join(root, "splatbench", "traffic", "render.json")) as f:
+    with open(os.path.join(ROOT, "splatbench", "traffic", "render.json")) as f:
         return [camera_params(width, height, yaw, shift) for yaw, shift in poses(json.load(f))]
 
 
@@ -309,8 +399,9 @@ def _check_preprocess_grads(device, model, cameras, degree, offsets=(False, True
     screen offset against the eager path's autograd, at each camera, for a
     random cotangent of the packed features (so the backward reads column
     slices of its ``[N+1, 16]`` cotangent) and of the depth, with and
-    without a screen offset; one backward launch each. Returns the last
-    pair of gradient lists."""
+    without a screen offset; one backward launch each. At each camera the
+    grad-free kernel's outputs too: all but rgb bitwise the eager path's,
+    rgb within ``RGB_ATOL``. Returns the last pair of gradient lists."""
     from gsplat_tpu_torch.kernels import preprocess as kp
 
     g = torch.Generator(device=device).manual_seed(seed)
@@ -321,11 +412,16 @@ def _check_preprocess_grads(device, model, cameras, degree, offsets=(False, True
         cam = tgs.CameraArrays.from_params(camera, device=device)
         with torch.no_grad():
             ins = (model.means, model.sh, model.quats, model.scales(), model.opacity())
-            colours = [kp.preprocess_forward(*ins, cam, w, h, degree, True).rgb,
-                       kp.preprocess_plain(*ins, cam, w, h, degree, True).rgb]
+            fwd = kp.preprocess_forward(*ins, cam, w, h, degree, True)
+            eager = kp.preprocess_plain(*ins, cam, w, h, degree, True)
+        for name in eager._fields:
+            if name != "rgb":
+                assert kp.same_bits(getattr(fwd, name), getattr(eager, name)), (name, i)
+        torch.testing.assert_close(fwd.rgb, eager.rgb, rtol=0, atol=kp.RGB_ATOL)
         kink = torch.zeros((n, 3), dtype=torch.bool, device=device)
-        for c in colours:
+        for c in (fwd.rgb, eager.rgb):
             kink |= (c <= kp.RGB_ATOL) | (c >= 1.0 - kp.RGB_ATOL)
+        del fwd, eager
         v_feat = torch.randn((n + 1, 16), generator=g, device=device)
         v_feat[:n, 6:9][kink] = 0.0
         v_depth = torch.randn(n, generator=g, device=device)
@@ -348,12 +444,15 @@ def _check_preprocess_grads(device, model, cameras, degree, offsets=(False, True
     return got, want
 
 
-@pytest.mark.parametrize("degree", [0, 1, 2, 3])
-def test_preprocess_grads_match_eager_at_orbit8(device, degree):
+@pytest.mark.parametrize("size,degree", [*((None, d) for d in range(4)), ("headline", 3), ("dense", 3)],
+                         ids=["0", "1", "2", "3", "headline-3", "dense-3"])
+def test_preprocess_grads_match_eager_at_orbit8(device, full_size, size, degree):
     """The kernel pair's gradients at the benchmark's eight ``orbit8`` poses
     (1920x1080) over 20,000 splats of its scene distribution, with and
-    without a screen offset, at every SH degree."""
-    _check_preprocess_grads(device, _bench_scene(device, 20_000), _orbit8_cameras(1920, 1080), degree, seed=degree)
+    without a screen offset, at every SH degree; and at SH degree 3 over
+    the headline's 1M and the dense scene's 5M gaussians (``full_size``)."""
+    model = _bench_scene(device, 20_000) if size is None else full_size(size)[0]
+    _check_preprocess_grads(device, model, _orbit8_cameras(1920, 1080), degree, seed=degree)
 
 
 @pytest.mark.parametrize("degree", [0, 3])
@@ -368,26 +467,36 @@ def test_preprocess_grads_on_edge_rows(device, n, degree):
     _check_preprocess_grads(device, model, cameras, degree, seed=n)
 
 
-def test_preprocess_grads_for_dead_pool_rows(device):
+@pytest.mark.parametrize("pool", ["small", "recipe_5m"])
+def test_preprocess_grads_for_dead_pool_rows(device, full_size, pool):
     """A pool's dead rows (``models/gaussians.py::pad_model``: at the origin,
     identity quaternion, log-scale 0, the dead opacity logit), seen from a
     camera at the origin: depth 0, so culled, and a zero view direction.
     Their gradients are finite and the eager path's, the geometry's (quats,
-    log-scales) exactly zero."""
+    log-scales) exactly zero. Also at ``recipe_5m``'s pool: the dense
+    scene's 5M gaussians padded to 10,000,128 rows
+    (``train/densify.py::init_pool``), seen at 1920x1080 from the bench
+    camera, which sits at the origin."""
     from gsplat_tpu_torch.models.gaussians import pad_model
+    from gsplat_tpu_torch.train.densify import init_pool
 
-    live, cameras = _edge_scene(device, 900, seed=3)
-    model = pad_model(live, 1024)
-    model = tgs.GaussianModel.from_arrays(model.to_arrays(), device=device)  # leaves again
-    fov = (cameras[0].fov_x, cameras[0].fov_y)
-    origin = tgs.CameraParams(96, 64, *fov, cameras[0].focal_x, cameras[0].focal_y, (1.0, 0.0, 0.0, 0.0),
-                              (0.0, 0.0, 0.0))
+    if pool == "small":
+        live, cameras = _edge_scene(device, 900, seed=3)
+        model = pad_model(live, 1024)
+        fov = (cameras[0].fov_x, cameras[0].fov_y)
+        origin = tgs.CameraParams(96, 64, *fov, cameras[0].focal_x, cameras[0].focal_y, (1.0, 0.0, 0.0, 0.0),
+                                  (0.0, 0.0, 0.0))
+    else:
+        live, origin, _ = full_size("dense")
+        model = init_pool(live, tgs.DensifyConfig())
+        assert model.num_gaussians == 10_000_128
+    n_live = live.num_gaussians
     for degree in (0, 3):
         got, want = _check_preprocess_grads(device, model, [origin], degree, seed=degree)
         for a, b in zip(got, want):
-            assert bool(torch.isfinite(a[900:]).all() and torch.isfinite(b[900:]).all())
+            assert bool(torch.isfinite(a[n_live:]).all() and torch.isfinite(b[n_live:]).all())
         for a, b in zip(got[2:4], want[2:4]):  # quats, log-scales
-            assert not bool(a[900:].any()) and not bool(b[900:].any())
+            assert not bool(a[n_live:].any()) and not bool(b[n_live:].any())
 
 
 def test_preprocess_grads_at_clamped_colours(device):
@@ -495,11 +604,12 @@ def _close_to_max(got, want):
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5 * float(want.abs().max()))
 
 
+@pytest.mark.parametrize("binned", ["small", "headline"], indirect=True)
 @pytest.mark.parametrize("threshold", [0.0, 1e-4])
 def test_backward_kernel_matches_plain(binned, threshold):
-    args, ntx, counts = binned
-    cfg = dataclasses.replace(CFG, early_stop_transmittance=threshold)
-    color, trans, done = forward_tiles(*args, ntx, cfg, WIDTH, HEIGHT)
+    args, ntx, counts, base, w, h = binned
+    cfg = dataclasses.replace(base, early_stop_transmittance=threshold)
+    color, trans, done = forward_tiles(*args, ntx, cfg, w, h)
     gen = torch.Generator(device=args[0].device).manual_seed(0)
     g_color = torch.randn(color.shape, generator=gen, device=color.device)
     g_trans = torch.randn(trans.shape, generator=gen, device=color.device)
@@ -549,7 +659,7 @@ def test_exact_grad_reduction_on_card(device):
 
 
 def test_backward_kernel_rejects_bad_inputs(binned):
-    args, ntx, _ = binned
+    args, ntx = binned[:2]
     color, trans, done = forward_tiles(*args, ntx, CFG)
     with pytest.raises(ValueError, match="g_color"):
         backward_tiles(*args, color, trans, color[:, :, :2].contiguous(), trans, ntx, CFG, done)
@@ -559,36 +669,37 @@ def test_backward_kernel_rejects_bad_inputs(binned):
         backward_tiles(*args, color, trans, color, trans, ntx, dataclasses.replace(CFG, tile_size=0), done)
 
 
-def _two_slices(args):
+def _two_slices(args, pair_block=CFG.pair_block):
     """The binned frame as two slices of every tile's pairs: the first two
     pair blocks, then the rest (start and count of each)."""
     _, _, tile_start, tile_count, _ = args
-    first = torch.minimum(tile_count, torch.full_like(tile_count, 2 * CFG.pair_block))
+    first = torch.minimum(tile_count, torch.full_like(tile_count, 2 * pair_block))
     return ((tile_start, first), (tile_start + first, tile_count - first))
 
 
+@pytest.mark.parametrize("binned", ["small", "dense"], indirect=True)
 @pytest.mark.parametrize("threshold", [0.0, 1e-4])
 def test_carry_kernels_match_plain(binned, threshold):
     """Both carry kernels, slice after slice, against their plain versions
     on the same inputs; the slices chained give the single pass's frame."""
-    args, ntx, _ = binned
+    args, ntx, _, base, w, h = binned
     feat, pair_gaussian, _, _, tile_ids = args
-    cfg = dataclasses.replace(CFG, early_stop_transmittance=threshold)
-    num_t, npix = tile_ids.shape[0], CFG.tile_size ** 2
+    cfg = dataclasses.replace(base, early_stop_transmittance=threshold)
+    num_t, npix = tile_ids.shape[0], cfg.tile_size ** 2
     carry = (torch.zeros(num_t, npix, 3, device=feat.device), torch.ones(num_t, npix, device=feat.device))
     before = forward_tiles_carry.launches, backward_tiles_carry.launches
     slices = []
-    for start, count in _two_slices(args):
-        got = forward_tiles_carry(feat, pair_gaussian, start, count, tile_ids, *carry, ntx, cfg, WIDTH, HEIGHT)
+    for start, count in _two_slices(args, cfg.pair_block):
+        got = forward_tiles_carry(feat, pair_gaussian, start, count, tile_ids, *carry, ntx, cfg, w, h)
         torch.cuda.synchronize()
-        want = forward_tiles_plain(feat, pair_gaussian, start, count, tile_ids, ntx, cfg, WIDTH, HEIGHT, carry=carry)
+        want = forward_tiles_plain(feat, pair_gaussian, start, count, tile_ids, ntx, cfg, w, h, carry=carry)
         torch.testing.assert_close(got[0], want[0], rtol=RTOL, atol=ATOL)
         torch.testing.assert_close(got[1], want[1], rtol=RTOL, atol=ATOL)
         torch.testing.assert_close(got[2], want[2], rtol=0, atol=0)
         slices.append((start, count, got[2]))
         carry = got[:2]
     if threshold == 0.0:
-        single = forward_tiles(*args, ntx, cfg, WIDTH, HEIGHT)
+        single = forward_tiles(*args, ntx, cfg, w, h)
         assert torch.equal(carry[0], single[0]) and torch.equal(carry[1], single[1])
     gen = torch.Generator(device=feat.device).manual_seed(1)
     g_color = torch.randn(carry[0].shape, generator=gen, device=feat.device)
@@ -609,7 +720,7 @@ def test_carry_kernels_match_plain(binned, threshold):
 
 
 def test_carry_kernels_reject_bad_inputs(binned):
-    args, ntx, _ = binned
+    args, ntx = binned[:2]
     num_t, npix = args[4].shape[0], CFG.tile_size ** 2
     color = torch.zeros(num_t, npix, 3, device=args[0].device)
     trans = torch.ones(num_t, npix, device=args[0].device)
@@ -629,18 +740,21 @@ def test_carry_kernels_reject_bad_inputs(binned):
 def test_sliced_render_on_card_matches_cpu(device):
     """The depth-sliced path on the card (both carry kernels) against the
     same model on the CPU (both plain versions): image, T and gradients;
-    with early stop off the image equals the single-sort render bitwise."""
+    two runs on the card bitwise equal; with early stop off the image
+    equals the single-sort render bitwise."""
     model, camera = scene(device, n=300, grow=0.0, seed=7)
     cpu_model = tgs.GaussianModel.from_arrays(model.to_arrays(), device="cpu")
     cfg = dataclasses.replace(CFG, slice_pairs=64, reduce_pairs=1024)
     before = forward_tiles.launches, forward_tiles_carry.launches
     outs = []
-    for m in (model, cpu_model):
+    for m in (model, model, cpu_model):
         img, trans = tgs.render(m, camera, cfg)
         grads = torch.autograd.grad((img * img).sum() + trans.sum(), list(m.parameters()))
         outs.append((img, trans, grads))
     assert forward_tiles.launches == before[0] and forward_tiles_carry.launches > before[1] + 1
-    (img, trans, grads), (c_img, c_trans, c_grads) = outs
+    (img, trans, grads), again, (c_img, c_trans, c_grads) = outs
+    assert torch.equal(img, again[0]) and torch.equal(trans, again[1])
+    assert all(torch.equal(a, b) for a, b in zip(grads, again[2]))
     torch.testing.assert_close(img.cpu(), c_img, rtol=RTOL, atol=ATOL)
     torch.testing.assert_close(trans.cpu(), c_trans, rtol=RTOL, atol=ATOL)
     for got, want in zip(grads, c_grads):
@@ -1018,17 +1132,19 @@ def test_mesh_render_on_padded_frame_is_bitwise(device, tmp_path):
         assert rank["launches"] == 2  # the single-device render and this rank's tiles
 
 
-def test_mesh_step_on_card_matches_one_device(device, tmp_path):
+@pytest.mark.parametrize("backend", ["gloo", "nccl"])
+def test_mesh_step_on_card_matches_one_device(device, tmp_path, backend):
     """One 2x2 train step of gloo ranks sharing the card, with one camera
-    repeated over the batch, against the 1x1 step: loss at rtol 1e-5, means
-    at rtol 1e-4 / atol 1e-7 (as ``tests/test_parallel.py`` holds JAX's
-    mesh shapes), the replicas bitwise equal."""
+    repeated over the batch, against the 1x1 step of a world of one over
+    ``backend`` (nccl: the backend a card a rank takes): loss at rtol 1e-5,
+    means at rtol 1e-4 / atol 1e-7 (as ``tests/test_parallel.py`` holds
+    JAX's mesh shapes), the replicas bitwise equal."""
     import torch_mesh_worker as worker
 
     arrays, cam = _mesh_arrays(300, 13), _pinhole(worker.W, worker.H)
     target = np.random.default_rng(3).uniform(0, 1, (worker.H, worker.W, 3)).astype(np.float32)
     one = worker.spawn_world(worker.repeated_step_world, 1, tmp_path / "one", arrays, cam, target, 1, 1,
-                             device="cuda")[0]
+                             device="cuda", backend=backend)[0]
     four = worker.spawn_world(worker.repeated_step_world, 4, tmp_path / "four", arrays, cam, target, 2, 2,
                               device="cuda")
     assert len({r["digest"] for r in four}) == 1
@@ -1056,17 +1172,14 @@ def test_coverage_histogram_on_card_matches_cpu(device):
 def test_bench_step_on_card_matches_cpu(device):
     """``tools/bench_torch.py``'s timed step (render, ``rgb_loss`` with SSIM
     weight 0.2, gradients to the five parameters; a warm-up and one timed
-    step) on ``chip_smoke.py``'s 20K-gaussian small scene at 256x192, drawn
-    on the CPU: the card's final loss within rel 1e-5 of the CPU's, in exact
-    mode and with early stop 1e-4, one forward launch a step on the card."""
-    import sys
-
-    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tools"))
+    step) on 20,000 gaussians of the benchmark's synthetic scene at scale
+    shift 2.5 and 256x192, drawn on the CPU: the card's final loss within
+    rel 1e-5 of the CPU's, in exact mode and with early stop 1e-4, one
+    forward launch a step on the card."""
     import bench_torch
-    import chip_smoke
 
-    arrays = chip_smoke.build_scene(20_000, 2.5, "cpu").to_arrays()
-    camera = chip_smoke.bench_camera(256, 192)
+    arrays = card.build_scene(20_000, 2.5, "cpu").to_arrays()
+    camera = card.camera_params(256, 192, 0.0, 0.0)
     losses = {}
     for dev in ("cpu", "cuda"):
         model = tgs.GaussianModel.from_arrays(arrays, device=dev)
@@ -1094,11 +1207,7 @@ def test_probe_transpose_kernels_on_card(device):
     3xTF32 is bitwise ``x.T`` at the finite normal blocks; both
     shared-memory transposes move those blocks and random 32-bit patterns
     bit for bit."""
-    import sys
-
     from gsplat_tpu_torch.kernels import probes as P
-
-    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tools"))
     import probe_transpose as PT
 
     rng = np.random.default_rng(15)
@@ -1157,11 +1266,7 @@ def test_orientation_kernels_on_card(device, orientation):
     1e-6 at ``t0`` 0.5 and 1 (the card's ``expf`` against PyTorch's), at the
     TPU probe's inputs, the passing set and the sparse set, where T is
     bitwise the plain version's."""
-    import sys
-
     from gsplat_tpu_torch.kernels import probes as P
-
-    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tools"))
     import orientation_test
 
     wrapper, plain = ((P.orientation_a, P.orientation_a_plain) if orientation == "a"
@@ -1232,9 +1337,6 @@ def test_recipe_steps_on_card_match_reference(device):
     384x256 on the card: a step and a pass step (step 50, iteration 7,600)
     held to the plain float64 reference ``splatbench/reference/fit.py``
     within the cell's own limits, which its full-size runs are held to."""
-    import sys
-
-    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     from splatbench import compare, run, spec
     from splatbench.reference import reference_answer
 

@@ -32,7 +32,7 @@ CPU tensor:
 The three tools run on the CPU at toy sizes, refuse to run without a card
 unless ``--device cpu`` is given, and import neither JAX nor the JAX
 package. The kernels themselves run only on the card
-(``tests/test_torch_gpu.py``, ``chip_smoke.py`` phase 15).
+(``tests/test_torch_gpu.py``).
 """
 
 import ast

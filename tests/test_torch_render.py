@@ -227,7 +227,8 @@ _NO_JAX_SCRIPT = """
 import sys
 import numpy as np, torch
 import gsplat_tpu_torch as tgs
-import chip_smoke  # noqa: F401  (imports only; it runs under __main__)
+sys.path.insert(0, "tools")
+import card  # noqa: F401  (the card helpers and the splatbench modules they import)
 rng = np.random.default_rng(0)
 n = 64
 arrays = {
@@ -253,8 +254,9 @@ print("ok")
 
 
 def test_port_imports_no_jax():
-    """The port and chip_smoke.py render, single-sort and depth-sliced,
-    without importing JAX or gsplat_tpu."""
+    """The port renders, single-sort and depth-sliced, and ``tools/card.py``
+    (with the ``splatbench`` modules it imports) loads, without importing
+    JAX or gsplat_tpu."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run(
         [sys.executable, "-c", _NO_JAX_SCRIPT], cwd=REPO, env=env,

@@ -1,7 +1,7 @@
-"""Spawned ranks for the port's mesh tests: each world runs on gloo, with a
-file store in the test's temporary directory (no port to clash over between
-test workers), and every rank saves what it computed for the parent to
-compare.
+"""Spawned ranks for the port's mesh tests: each world runs on gloo (or on
+nccl, one card a rank), with a file store in the test's temporary directory
+(no port to clash over between test workers), and every rank saves what it
+computed for the parent to compare.
 
 This module imports neither JAX nor the JAX package, so that the spawned
 ranks do not either. The world functions take numpy arrays and plain
@@ -15,15 +15,18 @@ import dataclasses
 import datetime
 import hashlib
 import os
+import sys
 import time
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
-import chip_smoke
-import gsplat_tpu_torch as tgs
-from gsplat_tpu_torch.parallel import (
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tools"))
+
+import card  # noqa: E402
+import gsplat_tpu_torch as tgs  # noqa: E402
+from gsplat_tpu_torch.parallel import (  # noqa: E402
     ParallelTrainer,
     initialize_distributed,
     make_batch_render,
@@ -41,24 +44,26 @@ W, H = 64, 48
 NAMES = ("means", "log_scales", "quats", "opacity_logits", "sh")
 
 
-def spawn_world(fn, world_size: int, tmp_dir, *args, timeout: float = 240.0, device: str = "cpu"):
+def spawn_world(fn, world_size: int, tmp_dir, *args, timeout: float = 240.0, device: str = "cpu",
+                backend: str = "gloo"):
     """Run ``fn(device, *args)`` on each rank of a new ``world_size``-rank
-    gloo world and return the list of their results, by rank. A rank that
-    raises fails the call (the others are stopped), and so does a world
-    that runs past ``timeout`` seconds."""
+    world (``backend``: gloo, or nccl with one card a rank) and return the
+    list of their results, by rank. A rank that raises fails the call (the
+    others are stopped), and so does a world that runs past ``timeout``
+    seconds."""
     tmp_dir = str(tmp_dir)
     os.makedirs(tmp_dir, exist_ok=True)
     store = os.path.join(tmp_dir, f"store-{fn.__name__}-{time.monotonic_ns()}")
-    chip_smoke.spawn_ranks([(_rank_main, (fn, world_size, store, tmp_dir, device, args), world_size)], timeout,
-                           f"{fn.__name__} on {world_size} ranks")
+    card.spawn_ranks([(_rank_main, (fn, world_size, store, tmp_dir, device, backend, args), world_size)], timeout,
+                     f"{fn.__name__} on {world_size} ranks")
     return [torch.load(os.path.join(tmp_dir, f"{fn.__name__}-rank{r}.pt"), weights_only=False)
             for r in range(world_size)]
 
 
-def _rank_main(rank, fn, world_size, store, tmp_dir, device, args):
+def _rank_main(rank, fn, world_size, store, tmp_dir, device, backend, args):
     torch.set_num_threads(1)  # the ranks share the host's cores
     dev = initialize_distributed(
-        backend="gloo", device=device, init_method=f"file://{store}", rank=rank, world_size=world_size,
+        backend=backend, device=device, init_method=f"file://{store}", rank=rank, world_size=world_size,
         timeout=COLLECTIVE_TIMEOUT,
     )
     try:

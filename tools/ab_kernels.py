@@ -10,16 +10,20 @@ all started together) into ``--out`` (default a temporary directory),
 prints each kernel's registers and spill bytes from the ``-Xptxas -v``
 report, then calls both sides through ``ctypes`` on the same inputs, at
 each tile edge of ``--tiles`` (each one thread block a tile: 1 to 64): the
-headline scene of ``chip_smoke.py`` (1M gaussians, 1920x1080, pair block
-128, capacity 1.5x the tiling's demand) binned by the change's Python,
-random cotangents, and a carry state from the single pass. It checks that
-the change's forward, backward and both carry forms are bitwise the
-parent's, and times each kernel with CUDA events (median of 20 launches)
-over ``--rounds`` rounds that alternate which side runs first. The last
-line is one JSON object: at each tile, each kernel's bitwise check,
-median, quartiles and runs per side and the share of rounds the change
-wins; and the card's name and power limit. Both sides must keep the C
-entry points' signatures (``gsplat_raster_fwd``, ``gsplat_raster_bwd``).
+benchmark's synthetic headline scene (``card.build_scene``: 1M gaussians,
+1920x1080, pair block 128, capacity 1.5x the tiling's demand, exact mode)
+binned by the change's Python, random cotangents, and a carry state from
+the single pass. It checks that the change's forward, backward and both
+carry forms are bitwise the parent's, and times each kernel with CUDA
+events (median of 20 launches) over ``--rounds`` rounds that alternate
+which side runs first. The last line is one JSON object: at each tile,
+each kernel's bitwise check, median, quartiles and runs per side and the
+share of rounds the change wins, and for the forward and backward the
+kernel's bound on this card beside the change's median (``bound``:
+``card.compositor_bound`` over the pair-pixels ``card.pair_pixels``
+counts, and its share of the time); and the card's name and power
+limit. Both sides must keep the C entry points' signatures
+(``gsplat_raster_fwd``, ``gsplat_raster_bwd``).
 
 With ``--probes`` it compares ``probe_transpose.cu`` instead: both sides'
 ``gsplat_probe_transpose_smem`` (``t1`` at ``[16, 128]``, ``t2`` at
@@ -60,7 +64,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("ab_kernels: no CUDA device", file=sys.stderr)
         return 2
-    import chip_smoke as cs
+    import card
     from gsplat_tpu_torch.kernels import build
     from gsplat_tpu_torch.kernels import raster_bwd as RB
     from gsplat_tpu_torch.kernels import raster_fwd as RF
@@ -86,7 +90,7 @@ def main() -> int:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"{side} {name}: nvcc exited {proc.returncode}\n{log}")
-        resources[f"{side} {name}"] = cs.ptxas_by_kernel(log)
+        resources[f"{side} {name}"] = card.ptxas_by_kernel(log)
         dll = ctypes.CDLL(lib)
         for entry, argtypes in sources[name].items():
             fn = getattr(dll, f"gsplat_{entry}")
@@ -95,13 +99,14 @@ def main() -> int:
     print(json.dumps({"resources": resources}), flush=True)
 
     if opts.probes:
-        result = {"nvidia_smi": cs.nvidia_smi_line(), "rounds": opts.rounds, "probes": compare_probes(fns, opts.rounds)}
+        result = {"nvidia_smi": card.nvidia_smi_line(), "rounds": opts.rounds,
+                  "probes": compare_probes(fns, opts.rounds)}
         print(json.dumps(result), flush=True)
         return 0 if all(p["bitwise"] for p in result["probes"].values()) else 1
     dev = torch.device("cuda")
-    model = cs.build_scene(cs.NUM_GAUSSIANS, 0.0, dev)
-    cam0 = cs.bench_camera(cs.WIDTH, cs.HEIGHT)
-    result = {"nvidia_smi": cs.nvidia_smi_line(), "rounds": opts.rounds, "tiles": {}}
+    model = card.build_scene(card.NUM_GAUSSIANS, 0.0, dev)
+    cam0 = card.camera_params(card.WIDTH, card.HEIGHT, 0.0, 0.0)
+    result = {"nvidia_smi": card.nvidia_smi_line(), "rounds": opts.rounds, "tiles": {}}
     for ts in (int(x) for x in opts.tiles.split(",")):
         result["tiles"][str(ts)] = compare(fns, model, cam0, ts, opts.rounds)
         torch.cuda.empty_cache()
@@ -113,7 +118,7 @@ def compare(fns, model, cam0, tile_size, rounds) -> dict:
     """Both sides' four kernels at one tile edge: bitwise checks and times."""
     import torch
 
-    import chip_smoke as cs
+    import card
     import gsplat_tpu_torch as gs
     from gsplat_tpu_torch.kernels import raster_bwd as RB
     from gsplat_tpu_torch.ops.compositing import MAX_GAUSSIAN_DENSITY_F32, MIN_ALPHA_F32
@@ -121,11 +126,11 @@ def compare(fns, model, cam0, tile_size, rounds) -> dict:
     dev = model.means.device
     with torch.inference_mode():
         probe = gs.RasterConfig(tile_size=tile_size, chunk_size=32, max_pairs=1 << 20)
-        demand = int(gs.binning_stats(model, gs.CameraArrays.from_params(cam0, device=dev), cs.WIDTH, cs.HEIGHT,
+        demand = int(gs.binning_stats(model, gs.CameraArrays.from_params(cam0, device=dev), card.WIDTH, card.HEIGHT,
                                       probe)["pair_demand"])
         cfg = gs.RasterConfig(tile_size=tile_size, chunk_size=32, pair_block=128, sh_degree=3,
-                              max_pairs=max(int(demand * 1.5) // 128 * 128, cs.CAPACITY_FLOOR))
-        args, _, ntx = cs.binned_inputs(model, cam0, cfg)
+                              max_pairs=max(int(demand * 1.5) // 128 * 128, card.CAPACITY_FLOOR))
+        args, _, ntx = card.binned_inputs(model, cam0, cfg)
     num_t, npix = args[4].shape[0], cfg.tile_size ** 2
     stream = torch.cuda.current_stream(dev).cuda_stream
 
@@ -138,14 +143,14 @@ def compare(fns, model, cam0, tile_size, rounds) -> dict:
         done = torch.empty((num_t,), dtype=torch.int32, device=dev)
         err = fns[side, "raster_fwd"](
             *(ptr(a) for a in args), *(ptr(c) for c in carry), num_t, ntx, cfg.tile_size, cfg.pair_block, 0.0,
-            cs.WIDTH, cs.HEIGHT, MIN_ALPHA_F32, MAX_GAUSSIAN_DENSITY_F32, ptr(color), ptr(trans), ptr(done), stream)
+            card.WIDTH, card.HEIGHT, MIN_ALPHA_F32, MAX_GAUSSIAN_DENSITY_F32, ptr(color), ptr(trans), ptr(done), stream)
         if err:
             raise RuntimeError(f"{side} forward: cudaError_t {err}")
         return color, trans, done
 
     first = fwd("parent")
     color, trans, done = first
-    g_color, g_trans = cs.random_cotangents(color, trans, seed=3)
+    g_color, g_trans = card.random_cotangents(color, trans, seed=3)
     carry = (color * 0.5, torch.sqrt(trans))  # a state to resume from
     state = RB.walk_state(color, trans, g_color, g_trans)
 
@@ -171,7 +176,7 @@ def compare(fns, model, cam0, tile_size, rounds) -> dict:
     for r in range(rounds):
         for side in ("parent", "change") if r % 2 == 0 else ("change", "parent"):
             for name, run in kernels.items():
-                times[name, side].append(cs.cuda_ms(lambda: run(side), 20))
+                times[name, side].append(card.cuda_ms(lambda: run(side), 20))
 
     def stats(v):
         q = statistics.quantiles(v, n=4)
@@ -181,6 +186,17 @@ def compare(fns, model, cam0, tile_size, rounds) -> dict:
         p, c = times[name, "parent"], times[name, "change"]
         out[name].update({"parent": stats(p), "change": stats(c),
                           "change_wins": sum(x < y for x, y in zip(c, p)) / len(p)})
+    # Exact mode walks every pair slot. The bytes: the inputs read once and,
+    # per pixel, colour, T and blocks_done written (the forward); the
+    # inputs, the frame, its cotangents and blocks_done read and the [P, 9]
+    # rows written (the backward).
+    counts = card.pair_pixels(args, ntx, cfg)
+    nbytes = {"raster_fwd": sum(t.numel() * t.element_size() for t in args) + num_t * (npix * 16 + 4),
+              "raster_bwd": sum(t.numel() * t.element_size() for t in (*args, color, trans, g_color, g_trans, done))
+              + args[1].numel() * 36}
+    for name, n in nbytes.items():
+        bound = card.compositor_bound(counts, n, backward=name == "raster_bwd")
+        out[name]["bound"] = card.bound_fields(bound, out[name]["change"]["median"])
     return out
 
 

@@ -21,8 +21,8 @@ over the torch reference's one forward-only frame in about 5 minutes
 
 Three modes:
 
-* synthetic (default): ``chip_smoke.py``'s bench scene (``build_scene``, the
-  distribution of ``bench.py``) of 1M gaussians at 1920x1080, tile 32, chunk
+* synthetic (default): the benchmark's synthetic scene (``card.build_scene``,
+  the distribution of ``bench.py``) of 1M gaussians at 1920x1080, tile 32, chunk
   32, capacity 1.5x the measured pair demand, exact mode (early stop 0).
   Then the extras in ``bench.py``'s order, each behind its budget reserve:
   real density (5M gaussians at scale shift 1.9, capacity 1.1x: depth-sliced
@@ -69,14 +69,14 @@ sys.path.insert(0, ROOT)
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-import chip_smoke  # noqa: E402
+import card  # noqa: E402
 from gsplat_tpu_torch import CameraArrays, CameraParams, GaussianModel, RasterConfig  # noqa: E402
 from gsplat_tpu_torch.render.pipeline import binning_stats, render_traced, suggest_max_pairs  # noqa: E402
 from gsplat_tpu_torch.train.loss import psnr, rgb_loss  # noqa: E402
 from gsplat_tpu_torch.utils.device import resolve_device  # noqa: E402
 
-WIDTH, HEIGHT = chip_smoke.WIDTH, chip_smoke.HEIGHT
-NUM_GAUSSIANS = chip_smoke.NUM_GAUSSIANS
+WIDTH, HEIGHT = card.WIDTH, card.HEIGHT
+NUM_GAUSSIANS = card.NUM_GAUSSIANS
 BASELINE_FPS = 1.0 / 300.0  # the reference: about 5 minutes per forward-only frame
 
 # Wall-clock budget of the whole default run. The headline line is printed
@@ -101,17 +101,17 @@ PAIR_SWEEP_SHIFTS = [0.0, 0.8, 1.4, 2.0]
 
 # The real-MipNeRF-360-density point (a garden/iteration_30000-sized
 # workload: about 8 pairs per gaussian, 40M pairs at 1080p) and its
-# depth-sliced settings, as chip_smoke.py phase 8 runs it.
-REAL_DENSITY_N = chip_smoke.REAL_N
-REAL_DENSITY_SHIFT = chip_smoke.REAL_SHIFT
-REAL_DENSITY_SLICE = chip_smoke.REAL_SLICE
-REAL_DENSITY_REDUCE = chip_smoke.REAL_REDUCE
+# depth-sliced settings (``tools/card.py``).
+REAL_DENSITY_N = card.REAL_N
+REAL_DENSITY_SHIFT = card.REAL_SHIFT
+REAL_DENSITY_SLICE = card.REAL_SLICE
+REAL_DENSITY_REDUCE = card.REAL_REDUCE
 
 RES_4K = (3840, 2160)
 
 # Least pair capacity handed to a timed step (keeps a tiny demand from
 # giving degenerate buffers).
-CAPACITY_FLOOR = chip_smoke.CAPACITY_FLOOR
+CAPACITY_FLOOR = card.CAPACITY_FLOOR
 
 # Timed steps per point: headline and early stop / sweep / real density / 4K.
 ITERS = (20, 8, 4, 6)
@@ -221,7 +221,7 @@ def _peak(dev: torch.device):
 def _device_fields(dev: torch.device) -> dict:
     fields = {"backend": dev.type}
     if dev.type == "cuda":
-        fields.update(device=torch.cuda.get_device_name(dev), nvidia_smi=chip_smoke.nvidia_smi_line())
+        fields.update(device=torch.cuda.get_device_name(dev), nvidia_smi=card.nvidia_smi_line())
     return fields
 
 
@@ -231,13 +231,13 @@ def synthetic_bench(quick: bool = False, device="cuda") -> dict:
     returns the final result."""
     _start_budget()
     dev = resolve_device(device)
-    cam = CameraArrays.from_params(chip_smoke.bench_camera(WIDTH, HEIGHT), device=dev)
+    cam = CameraArrays.from_params(card.camera_params(WIDTH, HEIGHT, 0.0, 0.0), device=dev)
     target = torch.zeros((HEIGHT, WIDTH, 3), device=dev) + 0.25
 
     # Headline: exact mode (early stop 0), the configuration every parity
     # test runs; at about 1 pair per gaussian early stop has little to skip.
     _reset_peak(dev)
-    model = chip_smoke.build_scene(NUM_GAUSSIANS, 0.0, dev)
+    model = card.build_scene(NUM_GAUSSIANS, 0.0, dev)
     max_pairs, num_pairs = sized_capacity(model, cam)
     # At 1.5x the demand the step cannot overflow, so num_pairs is the demand.
     if num_pairs > max_pairs:
@@ -280,7 +280,7 @@ def synthetic_bench(quick: bool = False, device="cuda") -> dict:
     # depth-sliced with early stop, then exact mode, then single-sort.
     if fits("real_density", 420.0):
         _reset_peak(dev)
-        m = chip_smoke.build_scene(REAL_DENSITY_N, REAL_DENSITY_SHIFT, dev)
+        m = card.build_scene(REAL_DENSITY_N, REAL_DENSITY_SHIFT, dev)
         try:
             cap, dem = sized_capacity(m, cam, headroom=1.1)
             c = make_cfg(cap, 1e-4, slice_pairs=REAL_DENSITY_SLICE, reduce_pairs=REAL_DENSITY_REDUCE)
@@ -313,7 +313,7 @@ def synthetic_bench(quick: bool = False, device="cuda") -> dict:
         _reset_peak(dev)
         try:
             w4, h4 = RES_4K
-            cam4 = CameraArrays.from_params(chip_smoke.bench_camera(w4, h4), device=dev)
+            cam4 = CameraArrays.from_params(card.camera_params(w4, h4, 0.0, 0.0), device=dev)
             t4 = torch.zeros((h4, w4, 3), device=dev) + 0.25
             cap4, dem4 = sized_capacity(model, cam4, width=w4, height=h4)
             el4, _ = time_fwd_bwd(model, cam4, t4, make_cfg(cap4, 0.0), iters=ITERS[3])
@@ -337,7 +337,7 @@ def synthetic_bench(quick: bool = False, device="cuda") -> dict:
         if not fits(f"pair_sweep[{shift}]", 80.0):
             continue
         _reset_peak(dev)
-        m = model if shift == 0.0 else chip_smoke.build_scene(NUM_GAUSSIANS, shift, dev)
+        m = model if shift == 0.0 else card.build_scene(NUM_GAUSSIANS, shift, dev)
         try:
             cap, _ = sized_capacity(m, cam)
             c = make_cfg(cap, 1e-4)
@@ -461,12 +461,12 @@ def selftest(n: int = 1_000_000, device="cuda") -> dict:
         raise ValueError("the selftest holds the CUDA forward kernel against its plain version and needs "
                          f"--device cuda; on {dev.type} both sides would be the plain version")
     with torch.inference_mode():
-        model = chip_smoke.build_scene(n, 0.0, dev)
-        camera = chip_smoke.bench_camera(WIDTH, HEIGHT)
+        model = card.build_scene(n, 0.0, dev)
+        camera = card.camera_params(WIDTH, HEIGHT, 0.0, 0.0)
         max_pairs, demand = sized_capacity(model, CameraArrays.from_params(camera, device=dev))
         cfg = RasterConfig(tile_size=32, chunk_size=32, pair_block=128, max_pairs=max_pairs, strict_parity=True,
                            early_stop_transmittance=0.0)
-        args, _, ntx = chip_smoke.binned_inputs(model, camera, cfg)
+        args, _, ntx = card.binned_inputs(model, camera, cfg)
         color, trans, done = forward_tiles(*args, ntx, cfg, WIDTH, HEIGHT)
         p_color, p_trans, p_done = forward_tiles_plain(*args, ntx, cfg, WIDTH, HEIGHT)
         err_img = float((color - p_color).abs().max())

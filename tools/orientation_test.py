@@ -69,7 +69,7 @@ sys.path.insert(0, ROOT)
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-import chip_smoke  # noqa: E402
+import card  # noqa: E402
 from gsplat_tpu_torch.kernels import probes as P  # noqa: E402
 from gsplat_tpu_torch.utils.device import resolve_device  # noqa: E402
 
@@ -165,9 +165,9 @@ def transmittance(out: torch.Tensor, orientation: str) -> torch.Tensor:
 def one_sm_bound(pair_pixels: int, passed: int) -> dict:
     """One SM's least time for the walk: the gate at every pair-pixel and the
     compositing at every passed one, against its expf."""
-    ops = pair_pixels * chip_smoke.GATE_FP32_OPS + passed * chip_smoke.FWD_PASSED_FP32_OPS
-    fp32_ms = ops / (chip_smoke.PEAK_FP32_OPS / SMS) * 1e3
-    sfu_ms = pair_pixels / (chip_smoke.PEAK_SFU_EXP / SMS) * 1e3
+    ops = pair_pixels * card.GATE_OPS + passed * card.FWD_PASSED_OPS
+    fp32_ms = ops / (card.PEAK_FP32_OPS / SMS) * 1e3
+    sfu_ms = pair_pixels / (card.PEAK_SFU / SMS) * 1e3
     return {"fp32_ops": ops, "fp32_ms": fp32_ms, "sfu_ms": sfu_ms, "bound_ms": max(fp32_ms, sfu_ms),
             "bound_by": "operations", "instruction_bound_ms": max(2 * fp32_ms, sfu_ms)}
 
@@ -193,8 +193,8 @@ def orientation_run(orientation: str, features: str, reps: int, dev, smi) -> dic
     trans_bitwise = bool(torch.equal(trans, transmittance(want, orientation))) if sparse else None
     sparse_ok = not sparse or (trans_bitwise and passed == reps * P.NPIX and bool((trans > 0).all()))
     on_card = dev.type == "cuda"
-    ms = chip_smoke.cuda_ms(lambda: wrapper(feat, reps, t0), ITERS, WARMUP) if on_card else None
-    plain_ms = chip_smoke.cuda_ms(lambda: plain(feat, reps, t0), PLAIN_RUNS) if on_card and features == "passing" else None
+    ms = card.cuda_ms(lambda: wrapper(feat, reps, t0), ITERS, WARMUP) if on_card else None
+    plain_ms = card.cuda_ms(lambda: plain(feat, reps, t0), PLAIN_RUNS) if on_card and features == "passing" else None
     bound = one_sm_bound(pair_pixels, passed)
     return {
         "probe": f"{orientation.upper()} ({'pairs in sequence' if orientation == 'a' else 'pairs across lanes'})",
@@ -214,7 +214,7 @@ def orientation_run(orientation: str, features: str, reps: int, dev, smi) -> dic
 def orientation_runs(dev) -> list:
     """A (``REPS_A`` chunks) and B (``REPS_B``) at every feature set on
     ``dev``, one record each."""
-    smi = chip_smoke.nvidia_smi_line() if dev.type == "cuda" else None
+    smi = card.nvidia_smi_line() if dev.type == "cuda" else None
     return [orientation_run(o, features, REPS_A if o == "a" else REPS_B, dev, smi)
             for o in ("a", "b") for features in FEATURE_SETS]
 

@@ -20,7 +20,7 @@ kernel against its plain version (``plain_bitwise_equal`` and
 the starts cover every column), the least time the card needs for the bytes
 moved, and the card's ``nvidia-smi`` name and power limit. Each time is
 that of ``ITERS`` calls captured in a CUDA graph after ``WARMUP`` calls,
-replayed between two CUDA events, over ``ITERS`` (``chip_smoke.graph_ms``):
+replayed between two CUDA events, over ``ITERS`` (``card.graph_ms``):
 device time with no host work in it (the wrapper copies the starts to the
 card at its first call with them, before the capture). Exit status 1 if a
 check fails::
@@ -45,7 +45,7 @@ sys.path.insert(0, ROOT)
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-import chip_smoke  # noqa: E402
+import card  # noqa: E402
 from gsplat_tpu_torch.kernels import probes as P  # noqa: E402
 from gsplat_tpu_torch.utils.device import resolve_device  # noqa: E402
 
@@ -59,9 +59,9 @@ def probe_lane_dma(dev) -> dict:
     launch, then ``WARMUP + ITERS`` on the card)."""
 
     def timed_ms(fn):
-        return chip_smoke.graph_ms(fn, ITERS, WARMUP) if dev.type == "cuda" else None
+        return card.graph_ms(fn, ITERS, WARMUP) if dev.type == "cuda" else None
 
-    smi = chip_smoke.nvidia_smi_line() if dev.type == "cuda" else None
+    smi = card.nvidia_smi_line() if dev.type == "cuda" else None
     x = torch.from_numpy(np.random.RandomState(0).randn(P.SLAB[0], M).astype(np.float32)).to(dev)
     got, want = P.lane_dma(x, STARTS), P.lane_dma_plain(x, STARTS)
     bitwise = bool(torch.equal(got, x * 2.0))
@@ -73,7 +73,7 @@ def probe_lane_dma(dev) -> dict:
         "plain_bitwise_equal": plain_bitwise, "max_abs_err": (got - want).abs().max().item(),
         "ok": bitwise and plain_bitwise, "ms": timed_ms(lambda: P.lane_dma(x, STARTS)), "plain_ms": timed_ms(lambda: P.lane_dma_plain(x, STARTS)),
         "library_ms": timed_ms(lambda: x * 2.0), "bytes": nbytes,
-        "bound_ms": nbytes / chip_smoke.PEAK_HBM_BYTES * 1e3, "bound_by": "bytes",
+        "bound_ms": nbytes / card.PEAK_HBM_BYTES * 1e3, "bound_by": "bytes",
     }
 
 

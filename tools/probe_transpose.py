@@ -33,11 +33,11 @@ plain version's and the library call's milliseconds, the least time the
 card needs for the bytes moved, and the card's ``nvidia-smi`` name and
 power limit. The kernels take microseconds, less than the host takes to
 call them, so each quantity is ``ITERS`` calls captured in a CUDA graph
-after ``WARMUP`` calls (``chip_smoke.capture_graph``), and the graphs of a
+after ``WARMUP`` calls (``card.capture_graph``), and the graphs of a
 probe are replayed between two CUDA events in ``ROUNDS`` rounds, each
 round in another order, so that no quantity always runs first; before each
 timed replay the device spins ``QUEUE_SLEEP_CYCLES`` while the host
-enqueues it (``chip_smoke.replay_ms``), so the events time the calls'
+enqueues it (``card.replay_ms``), so the events time the calls'
 kernels back to back (launch latency inside the graph, no host work):
 ``ms`` is the median over the rounds, ``ms_quartiles`` the first and third
 quartile (likewise ``plain_ms``, ``library_ms``). Exit status 1 if a check
@@ -70,7 +70,7 @@ sys.path.insert(0, ROOT)
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-import chip_smoke  # noqa: E402
+import card  # noqa: E402
 from gsplat_tpu_torch.kernels import probes as P  # noqa: E402
 from gsplat_tpu_torch.utils.device import resolve_device  # noqa: E402
 
@@ -176,11 +176,11 @@ def timed_rounds(fns: dict, rounds: int = ROUNDS) -> dict:
     call: one graph of ``ITERS`` calls each, replayed after the device's
     queue sleep in ``rounds`` rounds whose order rotates, so each quantity
     leads in turn."""
-    graphs = {name: chip_smoke.capture_graph(fn, ITERS, WARMUP) for name, fn in fns.items()}
+    graphs = {name: card.capture_graph(fn, ITERS, WARMUP) for name, fn in fns.items()}
     names, times = list(graphs), {name: [] for name in graphs}
     for r in range(rounds):
         for name in names[r % len(names):] + names[:r % len(names)]:
-            times[name].append(chip_smoke.replay_ms(graphs[name], ITERS, QUEUE_SLEEP_CYCLES))
+            times[name].append(card.replay_ms(graphs[name], ITERS, QUEUE_SLEEP_CYCLES))
     out = {}
     for name, ts in times.items():
         q1, _, q3 = statistics.quantiles(ts, n=4)
@@ -218,7 +218,7 @@ def probe_record(name, wrapper, run, expected, plain, library, nbytes: int, dev,
     bitwise = bool(torch.equal(got, expected))
     plain_bitwise = bool(torch.equal(got, want))
     special = special or {}
-    bytes_ms = nbytes / chip_smoke.PEAK_HBM_BYTES * 1e3
+    bytes_ms = nbytes / card.PEAK_HBM_BYTES * 1e3
     ops_ms = ops / PEAK_TF32_OPS * 1e3
     rec = {
         "probe": name, "kernel": wrapper.__name__, "device": dev.type, "nvidia_smi": smi, "shape": list(got.shape),
@@ -245,7 +245,7 @@ def probe_record(name, wrapper, run, expected, plain, library, nbytes: int, dev,
 def probe_transposes(dev, profile: bool = False) -> list:
     """Every probe of ``scripts/probe_transpose.py`` on ``dev``, in its
     order; one record each."""
-    smi = chip_smoke.nvidia_smi_line() if dev.type == "cuda" else None
+    smi = card.nvidia_smi_line() if dev.type == "cuda" else None
 
     def tensor(seed, shape):
         return torch.from_numpy(np.random.RandomState(seed).randn(*shape).astype(np.float32)).to(dev)
