@@ -43,6 +43,13 @@ there, none beyond), and the two paths' colours differ by up to
 cotangent's rgb entry is zero, and the kinks are held on their own, at
 colours both paths place exactly.
 
+The loss kernels (``kernels/loss.py``, ``csrc/loss.cu``) are held to the
+eager loss through autograd: the loss and mean SSIM within 1e-6 relative
+(sums in another order), the gradient at the backward compositor's
+tolerance (the blurs sum in another order and the combine's terms cancel),
+two calls bitwise equal; on small and odd frames, a strided frame and the
+headline's 1920x1080 frames at the eight ``orbit8`` poses.
+
 Tiles above 64 run as pixel groups of one thread block each: the forward
 with early stop on takes a second launch, the resume, counted apart
 (``resume_launches``), and the backward adds the groups' partial rows in
@@ -57,18 +64,22 @@ the real-density settings, where tiles hold thousands of pairs. They run
 with the rest under ``-m gpu``.
 """
 
+import contextlib
 import dataclasses
 import json
 import math
 import os
+import re
 import sys
 from typing import NamedTuple
+from unittest import mock
 
 import numpy as np
 import pytest
 import torch
 
 import gsplat_tpu_torch as tgs
+from gsplat_tpu_torch.kernels import loss as kl
 from gsplat_tpu_torch.kernels.raster_bwd import backward_tiles, backward_tiles_carry, backward_tiles_plain, reduce_pair_grads
 from gsplat_tpu_torch.kernels.raster_bwd import walk_state
 from gsplat_tpu_torch.kernels.raster_fwd import forward_tiles, forward_tiles_carry, forward_tiles_plain
@@ -602,6 +613,173 @@ def test_preprocess_kernel_rejects_bad_inputs(device):
 
 def _close_to_max(got, want):
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5 * float(want.abs().max()))
+
+
+def _grad_error(got, want):
+    """The largest error of ``got`` over the largest magnitude of ``want``,
+    and the count of entries outside rtol 1e-4 + atol 1e-5 of it."""
+    scale = float(want.abs().max())
+    err = (got.double() - want.double()).abs()
+    return float(err.max()) / scale, int((err > 1e-4 * want.double().abs() + 1e-5 * scale).sum())
+
+
+@contextlib.contextmanager
+def _loss_launches():
+    """Counts the loss kernels' launches inside the block, by the calls of
+    their C entry points (``launched["forward"]``, ``["backward"]``), and
+    asserts that no library convolution or GEMM ran among the device
+    operations torch.profiler records (it can miss one, so it counts none)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gsplat_tpu_torch.kernels import build
+
+    launched = {"forward": 0, "backward": 0}
+    sides = {"gsplat_loss_forward": "forward", "gsplat_loss_backward": "backward"}
+    real = build.load_function
+
+    def load(name, symbol, argtypes):
+        fn = real(name, symbol, argtypes)
+        if symbol not in sides:
+            return fn
+
+        def counted(*args):
+            launched[sides[symbol]] += 1
+            return fn(*args)
+
+        return counted
+
+    torch.cuda.synchronize()
+    with mock.patch.object(build, "load_function", load), profile(activities=[ProfilerActivity.CUDA]) as prof:
+        yield launched
+        torch.cuda.synchronize()
+    names = [e.name() for e in prof.profiler.kineto_results.events()
+             if e.device_type() == torch.autograd.DeviceType.CUDA]
+    assert not [n for n in names if re.search("conv|gemm|cudnn|xmma", n, re.IGNORECASE)], names
+
+
+def _check_loss(base, target, weight=0.2, view=lambda x: x, flat=False):
+    """The loss kernels (``kernels/loss.py``) on ``view`` of the frames,
+    differentiated with respect to ``base``, against the eager path: the loss
+    and the mean SSIM within 1e-6 relative (the order of their sums), the
+    gradient within rtol 1e-4 + atol 1e-5 of its largest magnitude (the
+    backward compositor's tolerance: the blurs sum in another order, and the
+    combine's terms cancel); one launch each way and no library kernel, two
+    calls bitwise equal, and ``ssim`` the forward kernel's mean SSIM.
+
+    ``flat``: a constant target against a frame with flat regions. There
+    ``s_pp = blur(p^2) - mu_p^2`` cancels to a few roundings of ``mu_p^2``
+    against ``C2`` (9e-4), so each f32 path's gradient is a few 1e-5 of the
+    scale off the float64 eager path at some hundred entries a frame, and
+    the two paths are as far apart. There both are held to the eager path in
+    float64, the kernels' largest error and count outside the tolerance at
+    most 1.5 times the eager f32 path's (at the headline's ``orbit8`` frames
+    the ratios read 0.86-1.21 and 0.79-1.06)."""
+    def run():
+        leaf = base.detach().clone().requires_grad_()
+        loss, mean_s = kl.loss_autograd(view(leaf), view(target), weight)
+        (grad,) = torch.autograd.grad(loss, leaf)
+        return loss.detach(), mean_s, grad
+
+    with _loss_launches() as launched:
+        first = run()
+    assert launched == {"forward": 1, "backward": 1}
+    assert all(torch.equal(a, b) for a, b in zip(first, run()))
+    loss, mean_s, grad = first
+    leaf = base.detach().clone().requires_grad_()
+    want = kl.loss_plain(view(leaf), view(target), weight)
+    (want_grad,) = torch.autograd.grad(want, leaf)
+    assert float(loss) == pytest.approx(float(want.detach()), rel=1e-6)
+    with torch.no_grad():
+        assert float(mean_s) == pytest.approx(float(kl.ssim_plain(view(base), view(target))), rel=1e-6, abs=1e-7)
+        assert float(tgs.ssim(view(base), view(target))) == pytest.approx(float(mean_s), rel=1e-6, abs=1e-7)
+    if not flat:
+        _close_to_max(grad, want_grad)
+        return
+    leaf = base.detach().double().requires_grad_()
+    (grad64,) = torch.autograd.grad(kl.loss_plain(view(leaf), view(target).double(), weight), leaf)
+    (k_max, k_bad), (e_max, e_bad) = _grad_error(grad, grad64), _grad_error(want_grad, grad64)
+    assert k_max <= 1.5 * e_max and k_bad <= 1.5 * e_bad, (k_max, k_bad, e_max, e_bad)
+
+
+@pytest.mark.parametrize("height,width", [(3, 5), (7, 11), (17, 33), (32, 48)], ids=["5x3", "11x7", "33x17", "48x32"])
+def test_loss_kernels_match_eager_on_small_frames(device, height, width):
+    """Frames smaller than a block (16x16) and than the window (11), and
+    ragged edges; with ties of prediction and target (``sign(0)``) in every
+    other column; at SSIM weights 0.2, 1.0 and 0 (L1 alone)."""
+    g = torch.Generator(device=device).manual_seed(height * width)
+    pred = torch.rand((height, width, 3), generator=g, device=device)
+    target = torch.rand((height, width, 3), generator=g, device=device)
+    target[:, ::2] = pred[:, ::2]
+    for weight in (0.2, 1.0, 0.0):
+        _check_loss(pred, target, weight)
+
+
+def test_loss_kernels_take_a_strided_frame(device):
+    """A frame's every other row (the benchmark's ``half`` fault,
+    ``image[::2]``): copied, then the kernels; no gradient reaches the rows
+    left out."""
+    g = torch.Generator(device=device).manual_seed(1)
+    pred = torch.rand((70, 90, 3), generator=g, device=device)
+    target = torch.rand((70, 90, 3), generator=g, device=device)
+    _check_loss(pred, target, view=lambda x: x[::2])
+
+
+@pytest.mark.parametrize("target", ["constant", "random"])
+def test_loss_kernels_match_eager_at_orbit8(device, full_size, target):
+    """The loss of the headline's 1920x1080 frames at the eight ``orbit8``
+    poses against the benchmark's constant 0.25 target (``flat``: its
+    gradient against the float64 eager path) and a random one."""
+    model, _, cfg = full_size("headline")
+    g = torch.Generator(device=device).manual_seed(8)
+    for camera in _orbit8_cameras(card.WIDTH, card.HEIGHT):
+        with torch.no_grad():
+            image, _ = tgs.render(model, camera, cfg)
+        want = torch.full_like(image, 0.25) if target == "constant" else torch.rand(image.shape, generator=g,
+                                                                                      device=device)
+        _check_loss(image, want, flat=target == "constant")
+
+
+def test_ssim_and_rgb_loss_on_card_take_the_kernels(device):
+    """``ssim`` on the card is differentiable through the kernels: the eager
+    SSIM's value and gradient, one launch each way and no library kernel;
+    so is ``rgb_loss`` at SSIM weight 0, the eager L1. CUDA frames the
+    kernels cannot take raise, for both."""
+    from gsplat_tpu_torch.train.loss import l1_loss
+
+    g = torch.Generator(device=device).manual_seed(3)
+    pred = torch.rand((17, 33, 3), generator=g, device=device)
+    target = torch.rand((17, 33, 3), generator=g, device=device)
+    for fn, plain in ((tgs.ssim, kl.ssim_plain), (lambda p, t: tgs.rgb_loss(p, t, 0.0), l1_loss)):
+        leaf = pred.clone().requires_grad_()
+
+        def run():
+            value = fn(leaf, target)
+            return value.detach(), torch.autograd.grad(value, leaf)[0]
+
+        with _loss_launches() as launched:
+            got, grad = run()
+        assert launched == {"forward": 1, "backward": 1}
+        eager_leaf = pred.clone().requires_grad_()
+        want = plain(eager_leaf, target)
+        (want_grad,) = torch.autograd.grad(want, eager_leaf)
+        assert float(got) == pytest.approx(float(want.detach()), rel=1e-6)
+        _close_to_max(grad, want_grad)
+    for p, t in ((pred.double(), target.double()), (pred[..., :2], target[..., :2]), (pred, target.cpu()),
+                 (pred, target.clone().requires_grad_())):
+        for fn in (tgs.ssim, lambda a, b: tgs.rgb_loss(a, b, 0.2)):
+            with pytest.raises(ValueError, match="the loss kernels take"):
+                fn(p, t)
+
+
+def test_loss_kernels_reject_bad_inputs(device):
+    good = torch.rand((8, 12, 3), device=device)
+    for pred, target, match in ((good.double(), good, "float32"), (good, good[:, ::2], "contiguous"),
+                                (good[..., :2].contiguous(), good[..., :2].contiguous(), r"\[H, W, 3\]"),
+                                (good, good[1:], "shape"), (good.cpu(), good.cpu(), "unsupported device")):
+        with pytest.raises(ValueError, match=match):
+            kl.loss_forward(pred, target, 0.2)
+    with pytest.raises(ValueError, match="maps"):
+        kl.loss_backward(good, good, torch.zeros((3, 8, 12, 2), device=device), 0.2, torch.ones((), device=device))
 
 
 @pytest.mark.parametrize("binned", ["small", "headline"], indirect=True)
@@ -1291,7 +1469,8 @@ def test_tracer_on_card(device, sliced):
     """The tracer on the card: every span has its CUDA events; the
     backward's spans run on autograd's thread, the first of them with the
     caller's span as parent, all with the step id; counters read after the
-    fence; the same gradients as with the tracer off."""
+    fence (``loss_kernel`` 1: the step's loss took the kernels); the same
+    gradients as with the tracer off."""
     import threading
 
     from gsplat_tpu_torch.utils import stages
@@ -1328,6 +1507,7 @@ def test_tracer_on_card(device, sliced):
         counts[name] = counts.get(name, 0) + value
     assert counts["host_syncs"] == len([s for s in rec.spans if s.sync]) >= 1
     assert counts["pairs"] > 0 and ("slices" in counts) == sliced
+    assert counts["loss_kernel"] == 1
 
 
 def test_recipe_steps_on_card_match_reference(device):
