@@ -130,14 +130,19 @@ def densify_prune_step(
     world-space scale exceeds ``prune_scale_extent * scene_extent`` or whose
     largest projected radius over the window (``state.max_radius``) exceeds
     ``max_screen_size`` pixels."""
-    eps = torch.randn((model.num_gaussians, 3), generator=generator, dtype=model.means.dtype,
-                      device=model.means.device)
-    return _densify_prune_step(model, state, eps, scene_extent, cfg, step)
+    return _densify_prune_step(model, state, generator, scene_extent, cfg, step)
 
 
 @torch.no_grad()
 def _densify_prune_step(model, state, eps, scene_extent, cfg, step):
-    """``densify_prune_step`` with its split samples ``eps [C, 3]`` given."""
+    """``densify_prune_step`` with its split samples ``eps [C, 3]`` given, or
+    the generator to draw them from.
+
+    Spans (``utils/stages.py``), inside the caller's ``densify``:
+    ``densify_select`` (the masks, the mean gradient, the counts' host read
+    and the two stable sorts) and ``densify_rows`` (the split samples'
+    draw, the new rows' gathers and writes, the originals' shrink); the
+    counter ``filled`` is the number of rows placed."""
     c = model.num_gaussians
     dev = model.means.device
     params = {k: getattr(model, k) for k in PARAM_NAMES}
@@ -150,62 +155,67 @@ def _densify_prune_step(model, state, eps, scene_extent, cfg, step):
 
     extent = f32(scene_extent)
 
-    alive = alive_mask(model)
-    opacity = torch.sigmoid(params["opacity_logits"])
-    max_scale = torch.exp(params["log_scales"].amax(dim=-1))
-    prune = alive & (opacity < f32(cfg.min_opacity))
-    if cfg.max_screen_size > 0 and step >= cfg.size_prune_start:
-        big_ws = max_scale > extent * f32(cfg.prune_scale_extent)
-        big_vs = state.max_radius > f32(cfg.max_screen_size)
-        prune = prune | (alive & (big_ws | big_vs))
-    alive = alive & ~prune
+    with stages.stage("densify_select"):
+        alive = alive_mask(model)
+        opacity = torch.sigmoid(params["opacity_logits"])
+        max_scale = torch.exp(params["log_scales"].amax(dim=-1))
+        prune = alive & (opacity < f32(cfg.min_opacity))
+        if cfg.max_screen_size > 0 and step >= cfg.size_prune_start:
+            big_ws = max_scale > extent * f32(cfg.prune_scale_extent)
+            big_vs = state.max_radius > f32(cfg.max_screen_size)
+            prune = prune | (alive & (big_ws | big_vs))
+        alive = alive & ~prune
 
-    avg_grad = state.grad_sum / state.grad_count.clamp(min=1)
-    want = alive & (state.grad_count > 0) & (avg_grad >= f32(cfg.grad_threshold))
-    is_split = want & (max_scale > extent * f32(cfg.percent_dense))
+        avg_grad = state.grad_sum / state.grad_count.clamp(min=1)
+        want = alive & (state.grad_count > 0) & (avg_grad >= f32(cfg.grad_threshold))
+        is_split = want & (max_scale > extent * f32(cfg.percent_dense))
 
-    # Match the i-th best candidate with the i-th free slot: two stable
-    # sorts (free slots in slot order; candidates by falling avg_grad, ties
-    # and non-candidates in slot order). `+ 0.0` turns -0.0 into 0.0, which
-    # the JAX sort treats as equal.
-    free_count, want_count = (~alive).sum(), want.sum()
-    with stages.sync("densify_sync"):
-        n_free, n_want = int(free_count), int(want_count)
-    k = min(n_free, n_want)
-    dst = torch.sort(alive.to(torch.int32), stable=True).indices[:k]
-    src = torch.sort(torch.where(want, -avg_grad + 0.0, math.inf), stable=True).indices[:k]
+        # Match the i-th best candidate with the i-th free slot: two stable
+        # sorts (free slots in slot order; candidates by falling avg_grad, ties
+        # and non-candidates in slot order). `+ 0.0` turns -0.0 into 0.0, which
+        # the JAX sort treats as equal.
+        free_count, want_count = (~alive).sum(), want.sum()
+        with stages.sync("densify_sync"):
+            n_free, n_want = int(free_count), int(want_count)
+        k = min(n_free, n_want)
+        dst = torch.sort(alive.to(torch.int32), stable=True).indices[:k]
+        src = torch.sort(torch.where(want, -avg_grad + 0.0, math.inf), stable=True).indices[:k]
+    stages.count("filled", k)
 
-    # New-slot parameters, gathered before any write.
-    src_split = is_split[src]
-    log_split = f32(math.log(cfg.split_factor))
-    shrink = torch.where(src_split, -log_split, 0.0)
-    new_log_scales = params["log_scales"][src] + shrink[:, None]
-    # Split sample: mean + R @ (scale * eps), eps row i for candidate i. The
-    # norm and the product are spelled out elementwise (no reduction or
-    # matmul kernel), so the card and the CPU round them alike.
-    scaled = torch.exp(params["log_scales"][src]) * eps[:k]
-    q = params["quats"][src]
-    norm = torch.sqrt(q[:, 0] * q[:, 0] + q[:, 1] * q[:, 1] + q[:, 2] * q[:, 2] + q[:, 3] * q[:, 3])
-    rot = quaternion_to_rotation_matrix(q / norm.clamp(min=1e-12)[:, None])
-    offset = rot[:, :, 0] * scaled[:, 0:1] + rot[:, :, 1] * scaled[:, 1:2] + rot[:, :, 2] * scaled[:, 2:3]
-    new_means = params["means"][src] + torch.where(src_split[:, None], offset, 0.0)
-    new_rows = {
-        "means": new_means,
-        "log_scales": new_log_scales,
-        "quats": params["quats"][src],
-        "opacity_logits": params["opacity_logits"][src],
-        "sh": params["sh"][src],
-    }
+    with stages.stage("densify_rows"):
+        if isinstance(eps, torch.Generator):
+            eps = torch.randn((c, 3), generator=eps, dtype=params["means"].dtype, device=dev)
+        # New-slot parameters, gathered before any write.
+        src_split = is_split[src]
+        log_split = f32(math.log(cfg.split_factor))
+        shrink = torch.where(src_split, -log_split, 0.0)
+        new_log_scales = params["log_scales"][src] + shrink[:, None]
+        # Split sample: mean + R @ (scale * eps), eps row i for candidate i. The
+        # norm and the product are spelled out elementwise (no reduction or
+        # matmul kernel), so the card and the CPU round them alike.
+        scaled = torch.exp(params["log_scales"][src]) * eps[:k]
+        q = params["quats"][src]
+        norm = torch.sqrt(q[:, 0] * q[:, 0] + q[:, 1] * q[:, 1] + q[:, 2] * q[:, 2] + q[:, 3] * q[:, 3])
+        rot = quaternion_to_rotation_matrix(q / norm.clamp(min=1e-12)[:, None])
+        offset = rot[:, :, 0] * scaled[:, 0:1] + rot[:, :, 1] * scaled[:, 1:2] + rot[:, :, 2] * scaled[:, 2:3]
+        new_means = params["means"][src] + torch.where(src_split[:, None], offset, 0.0)
+        new_rows = {
+            "means": new_means,
+            "log_scales": new_log_scales,
+            "quats": params["quats"][src],
+            "opacity_logits": params["opacity_logits"][src],
+            "sh": params["sh"][src],
+        }
 
-    params["opacity_logits"].masked_fill_(prune, DEAD_OPACITY_LOGIT)
-    for name, rows in new_rows.items():
-        params[name][dst] = rows
-    # The split original shrinks too (its slot keeps its mean), but only if
-    # its new half got a free slot: the i-th candidate is placed iff i < k.
-    placed = torch.zeros((c,), dtype=torch.bool, device=dev)
-    placed[src] = True
-    shrink_orig = is_split & placed
-    params["log_scales"][shrink_orig] -= log_split
+        params["opacity_logits"].masked_fill_(prune, DEAD_OPACITY_LOGIT)
+        for name, value in new_rows.items():
+            params[name][dst] = value
+        # The split original shrinks too (its slot keeps its mean), but only if
+        # its new half got a free slot: the i-th candidate is placed iff i < k.
+        placed = torch.zeros((c,), dtype=torch.bool, device=dev)
+        placed[src] = True
+        shrink_orig = is_split & placed
+        params["log_scales"][shrink_orig] -= log_split
 
     # Rows whose parameters or liveness changed: the trainer zeroes their
     # optimizer moments (a reused slot must not inherit stale Adam state).

@@ -252,7 +252,8 @@ class FitLoop:
                         _, touched, dstats = D.densify_prune_step(
                             state.model, state.dstate, state.generator, state.extent, dc, step=step
                         )
-                        D.reset_opt_rows(state.optimizer, touched)
+                        with stage("densify_reset"):
+                            D.reset_opt_rows(state.optimizer, touched)
                     densified = (state.dstate, touched, dstats)
                     state.dstate = D.DensifyState.zero(state.model.num_gaussians, dev)
                     if self._main:

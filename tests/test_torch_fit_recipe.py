@@ -196,7 +196,8 @@ def test_densify_marks_recorded_and_off_when_not(monkeypatch):
     syncs = {s.name for s in rec.spans if s.sync}
     assert syncs == {"densify_sync", "capacity_check"}
     by_id = {s.id: s for s in rec.spans}
-    assert {by_id[s.parent].name for s in rec.spans if s.name == "densify_sync"} == {"densify"}
+    # The counts' read sits in the pass's selection, the stats' read after its writes.
+    assert [by_id[s.parent].name for s in rec.spans if s.name == "densify_sync"] == ["densify_select", "densify"]
     counters = {name: value for name, _, value in rec.counter_values()
                 if name in ("pruned", "cloned", "split", "densify_wanted", "alive")}
     stats = out.densified[2]

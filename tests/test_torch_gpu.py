@@ -1165,6 +1165,102 @@ def test_densify_pass_on_card_matches_cpu(device):
     assert bool(((got[new_rows] - want[new_rows]).abs() <= 1e-6 * scale).all())
 
 
+def test_growing_pass_at_full_size_on_card_matches_cpu(device, monkeypatch):
+    """The pass of the benchmark's ``grow_5m.fit`` at its window's pass step
+    (step 50, recipe iteration 7,600) at full size: the 5M-gaussian growing
+    scene in its pool of 10,000,128 rows, with the accumulator and the
+    updated pool that step hands the pass, run once on the card and once on
+    the CPU with the same state and split samples (the pass's own draw).
+
+    Tolerances: the masks read the same float32 inputs on both sides, and
+    the mean gradient is a division, rounded alike; ``exp`` and ``sigmoid``
+    come from the card's and the CPU's own libraries and may round one ulp
+    apart. So a candidate whose largest scale lies within a float32
+    rounding step of the split rule's threshold (``exp``'s, and the
+    threshold's own float32 product's) may clone on one side and
+    split on the other: the clone and split counts may differ by the number
+    of such rows, and the touched rows and written rows only there (the
+    other thresholds have no live row within a rounding step: asserted).
+    Every other row is bitwise equal, but the means of new split halves,
+    whose offsets ``R @ (exp(log_scale) * eps)`` take ``exp`` from each
+    side's library: within 1e-6 of each row's largest component."""
+    from splatbench import loops, run, spec
+    from gsplat_tpu_torch.train import densify as D
+
+    names = ("means", "log_scales", "quats", "opacity_logits", "sh")
+    bench = json.loads((run.REPO / "BENCHMARK.json").read_text())
+    cell = spec.load_cell(bench, "grow_5m.fit", run.REPO)
+    params = spec.scene_file(cell.config).build(cell.config, 2147483659, device)
+    prog = loops.Program(cell.config, cell.traffic, params, device)
+    captured = {}
+    real = D.densify_prune_step
+
+    def capture(model, state, generator, extent, cfg, step=0):
+        captured.update(params=[getattr(model, name).detach().clone() for name in names],
+                        state=[x.clone() for x in state], extent=extent, cfg=cfg, step=step,
+                        eps=torch.randn((model.num_gaussians, 3), generator=torch.Generator(device=device).manual_seed(
+                            generator.initial_seed()), device=device))
+        return real(model, state, generator, extent, cfg, step)
+
+    monkeypatch.setattr(D, "densify_prune_step", capture)
+    answer = prog.step(50)
+    monkeypatch.undo()
+    assert answer.passed and captured["params"][0].shape[0] == 10_000_128
+    cfg, extent, c = captured["cfg"], captured["extent"], 10_000_128
+    outs = []
+    for dev in (device, torch.device("cpu")):
+        model = tgs.GaussianModel(*(p.to(dev, copy=True) for p in captured["params"]))
+        st = D.DensifyState(*(x.to(dev) for x in captured["state"]))
+        _, touched, stats = D._densify_prune_step(model, st, captured["eps"].to(dev), extent, cfg, captured["step"])
+        outs.append(([getattr(model, name).detach().cpu() for name in names], touched.cpu(), stats))
+    del prog, model, st
+    (card, c_touched, c_stats), (cpu, touched, stats) = outs
+    assert stats["cloned"] >= 1000 and stats["split"] >= 1000 and stats["pruned"] < 0.01 * cell.config["n_gaussians"]
+
+    # The rows whose decision may differ: live candidates within a float32
+    # rounding step of the split rule (float64 on the CPU's inputs).
+    before = captured["params"]
+    log_scales, logits = before[1].cpu().double(), before[3].cpu().double()
+    alive = before[3].cpu() > D._ALIVE_THRESHOLD
+    largest = torch.exp(log_scales.amax(-1))
+    rounding = 2.0 ** -22  # a step of exp's rounding and one of the threshold's own float32 product
+
+    def near(value, threshold):
+        return alive & ((value / threshold - 1.0).abs() <= rounding)
+
+    e32 = float(torch.tensor(extent, dtype=torch.float32))
+    assert not bool(near(torch.sigmoid(logits), cfg.min_opacity).any())
+    assert not bool(near(largest, e32 * cfg.prune_scale_extent).any())
+    grad_sum, grad_count, max_radius = (x.cpu() for x in captured["state"])
+    prune = torch.sigmoid(logits) < cfg.min_opacity
+    prune |= (largest > e32 * cfg.prune_scale_extent) | (max_radius > cfg.max_screen_size)
+    alive &= ~prune
+    avg = grad_sum / grad_count.clamp(min=1)
+    want = alive & (grad_count > 0) & (avg >= torch.tensor(cfg.grad_threshold, dtype=torch.float32))
+    flip = want & near(largest, e32 * cfg.percent_dense)
+    k = stats["cloned"] + stats["split"]
+    src = torch.sort(torch.where(want, -avg + 0.0, math.inf), stable=True).indices[:k]
+    dst = torch.sort(alive.to(torch.int32), stable=True).indices[:k]
+    free = torch.zeros(c, dtype=torch.bool)
+    free[dst[flip[src]]] = True  # the slots the flipped candidates fill
+    either = flip | free
+    assert {n: v for n, v in c_stats.items() if n not in ("cloned", "split")} == \
+        {n: v for n, v in stats.items() if n not in ("cloned", "split")}
+    assert abs(c_stats["split"] - stats["split"]) <= int(flip.sum())
+    assert torch.equal(c_touched[~either], touched[~either])
+    for i, (got, ref) in enumerate(zip(card, cpu)):
+        if i == 0:
+            continue
+        assert torch.equal(got[~either], ref[~either]), i
+    got, ref = card[0][~either], cpu[0][~either]
+    new_rows = torch.zeros(c, dtype=torch.bool)
+    new_rows[dst] = True
+    exact = ~new_rows[~either]
+    assert torch.equal(got[exact], ref[exact])
+    scale = ref[~exact].abs().amax(dim=1, keepdim=True)
+    assert bool(((got[~exact] - ref[~exact]).abs() <= 1e-6 * scale).all())
+
+
 def test_densifying_fit_resumes_bitwise_on_card(device, tmp_path):
     """A densifying fit at 256x192 (passes at steps 3 and 6), interrupted
     after step 4 and resumed by a fresh trainer from its loop checkpoint,
