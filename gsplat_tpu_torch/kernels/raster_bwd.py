@@ -49,6 +49,7 @@ from gsplat_tpu_torch.kernels import build, cull
 from gsplat_tpu_torch.ops import binning as B
 from gsplat_tpu_torch.ops.compositing import MAX_GAUSSIAN_DENSITY_F32, MIN_ALPHA_F32, gaussian_alpha
 from gsplat_tpu_torch.render.tile_torch import tile_pixel_coords
+from gsplat_tpu_torch.utils import stages
 
 NUM_GRAD = 9  # gradient columns per pair row: FEAT_MEAN_X .. FEAT_B
 
@@ -348,9 +349,11 @@ def reduce_pair_grads(
 
     ``gaussian_counts=None``: an exact segment sum (``index_add_``). Its
     atomic additions land in a varying order on the card, so it is not
-    bitwise repeatable there.
+    bitwise repeatable there. Counts ``P`` into the tracer's
+    ``reduced_pairs``.
     """
     n = num_rows - 1
+    stages.count("reduced_pairs", pair_gaussian.shape[0])
     d_feat = pair_grads.new_zeros((num_rows, B.NUM_FEATURES))
     if gaussian_counts is None:
         sums = pair_grads.new_zeros((num_rows, NUM_GRAD))
@@ -394,22 +397,69 @@ def pair_counts(pair_gaussian: torch.Tensor, num_rows: int) -> torch.Tensor:
     return counts[:-1]
 
 
-def reduce_sorted(pair_grads: torch.Tensor, pair_gaussian: torch.Tensor, num_rows: int) -> torch.Tensor:
+def reduce_sorted(
+    pair_grads: torch.Tensor,
+    pair_gaussian: torch.Tensor,
+    num_rows: int,
+    out: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
     """Sum per-pair rows ``[P, 9]`` into per-gaussian rows ``[num_rows, 16]``
     where no ``gaussian_counts`` describes the pairs (one depth slice's
     pairs, or a compacted subset of a frame's), as the JAX package's sliced
     backward does (``gsplat_tpu/render/sliced.py`` ``reduce_sorted``).
 
-    Each gaussian's segment in id order is found from the ids themselves:
-    its pair count is an integer ``index_add_`` over the ids, and
-    :func:`reduce_pair_grads` differences the sorted cumsum at the counts'
-    running ends. (The JAX package finds the ends with a scatter-max of
-    positions and a cummax over ids; PyTorch's cummax of one long row runs
-    nearly serially on the card.) No float atomics and no host sync: bitwise
-    repeatable on the card. Sentinel pairs (id ``N``) and ids without pairs
-    get zero rows.
+    The rows are sorted by id (stable) and scanned by :func:`blocked_cumsum`
+    as in :func:`reduce_pair_grads`; each id's segment ends where the sorted
+    ids change, and its sum is the cumsum there less the cumsum at the
+    segment end before it (0 before the first): the same values at the same
+    positions as :func:`reduce_pair_grads` with each id's pair count, so
+    bitwise its result. No float atomics and no host sync: bitwise
+    repeatable on the card.
+
+    ``[K, P, 9]`` rows and ``[K, P]`` ids are K sets of pairs, each reduced
+    on its own as above (its own sort, cumsum and segments), in one pass:
+    the depth slices of one backward, whose ids are disjoint but for the
+    sentinel.
+
+    Each segment's sum is written into the first 9 columns of its id's row
+    of ``out`` (a new zeroed ``[num_rows, 16]`` if None), which is
+    returned; the rest of ``out`` is left as it is. Its sentinel row ``N``
+    (the sentinel pairs' id) must be zero and stays so. So the cost is the
+    pairs', ``O(K P)``, beside ``out`` itself. Counts ``K P`` into the
+    tracer's ``reduced_pairs``.
     """
-    return reduce_pair_grads(pair_grads, pair_gaussian, pair_counts(pair_gaussian, num_rows), num_rows)
+    n, p = num_rows - 1, pair_gaussian.shape[-1]
+    if out is None:
+        out = pair_grads.new_zeros((num_rows, B.NUM_FEATURES))
+    stages.count("reduced_pairs", pair_gaussian.numel())
+    if n == 0 or pair_gaussian.numel() == 0:
+        return out
+    ids, order = torch.sort(pair_gaussian.reshape(-1, p), dim=1, stable=True)  # [K, P]
+    grads = pair_grads.reshape(-1, p, NUM_GRAD).transpose(1, 2)
+    by_id = grads.gather(2, order[:, None].expand_as(grads))  # [K, 9, P]
+    # Each set's cumsum on its own [9, P], as a call for that set alone
+    # takes it: how the card's scan associates its additions follows the shape.
+    cum = torch.cat([blocked_cumsum(x) for x in by_id], 1)  # [9, K P]
+    # Segments end where the sorted ids change and at each set's last
+    # position; the j-th end's position goes to ends[j].
+    is_end = F.pad(ids[:, 1:] != ids[:, :-1], (0, 1), value=True).view(-1)
+    nth = is_end.cumsum(0)
+    pos = torch.arange(nth.shape[0], device=nth.device)
+    ends = nth.new_zeros(nth.shape[0] + 1).index_copy_(0, nth * is_end, pos)[1:]
+    at_end = cum.index_select(1, ends)
+    # Less the cumsum at the segment end before, 0 before a set's first.
+    before = F.pad(at_end[:, :-1], (1, 0))
+    if ids.shape[0] > 1:
+        before = torch.where(F.pad(ends[:-1] % p == p - 1, (1, 0)), 0.0, before)
+    sums = at_end - before
+    # The slots past the last segment repeat the segments (slot j writes
+    # segment j mod count), so every write lands on a segment's own row
+    # with its own sum and none is masked; the sentinel's segments write
+    # row N, zeroed after.
+    seg = pos % nth[-1]
+    out[:, :NUM_GRAD].index_copy_(0, ids.view(-1)[ends[seg]].long(), sums.t()[seg])
+    out[n].zero_()
+    return out
 
 
 def written_slots(tile_start: torch.Tensor, blocks_done: torch.Tensor, total_blocks: int, pair_block: int) -> torch.Tensor:

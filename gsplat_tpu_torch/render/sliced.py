@@ -42,12 +42,16 @@ scans at slice boundaries and differ by 1-2 ulp, ``sliced.py:55-57``).
 The backward (``_RasterizeSliced.backward``) walks the executed slices front
 to back with the backward compositor's carry form, threading the walk state
 (``kernels/raster_bwd.py`` ``backward_tiles_carry``). Each slice's rows
-reduce by ``reduce_sorted`` (slices partition the gaussians, so the sums are
-disjoint). With ``cfg.reduce_pairs > 0`` the walked blocks of all slices are
-gathered into one buffer and reduced once instead, when they fit it; the
-forward's ``blocks_done`` already says whether they do (one host sync), so
-an overflow takes the per-slice reduction without a second walk and gives
-its result bitwise.
+reduce by ``reduce_sorted``, each slice on its own (its sort, cumsum and
+segments), all in one pass after the walk, straight into the backward's one
+``d_feat``, zeroed once: the slices partition the gaussians, so each writes
+only its own ids' rows, and the reduction costs the pairs, not the pool. With
+``cfg.reduce_pairs > 0`` the walked blocks of all slices are gathered (in
+one pass too) into one buffer and reduced once instead, when they fit it;
+the forward's
+``blocks_done`` already says whether they do (one host sync), so an
+overflow takes the per-slice reduction without a second walk and gives its
+result bitwise.
 """
 
 from __future__ import annotations
@@ -262,32 +266,33 @@ def _backward_impl(feat, color, trans, g_color, g_trans, rec: SliceRecords, widt
     tile_ids = torch.arange(num_tiles, dtype=torch.int32, device=feat.device)
     n_rows = feat.shape[0]
     r_blk = cfg.reduce_pairs // cfg.pair_block
-    per_slice = None
+    walked = None  # blocks the slices walk, where they fit the compact buffer
     if r_blk > 0 and rec.bdone:
         with stages.sync("slice_sync"):
-            per_slice = torch.stack([b.sum() for b in rec.bdone]).tolist()  # blocks each slice walks
-        stages.count("reduction", int(sum(per_slice) <= r_blk))
-        if sum(per_slice) > r_blk:
-            per_slice = None  # overflow: the per-slice reduction
+            walked = int(torch.stack(rec.bdone).sum())
+        stages.count("reduction", int(walked <= r_blk))
+        if walked > r_blk:
+            walked = None  # overflow: the per-slice reduction
     carry = walk_state(color, trans, g_color, g_trans)
-    d_feat = feat.new_zeros((n_rows, B.NUM_FEATURES)) if per_slice is None else None
-    rows_c, ids_c = [], []
+    rows_k = []
     for k in range(len(rec.ids)):
         with stage("raster_bwd"):
             rows, carry = backward_tiles_carry(
                 feat, rec.ids[k], rec.starts[k], rec.countc[k], tile_ids, carry, g_color, ntxg, cfg, rec.bdone[k]
             )
-        with stage("reduction"):
-            if per_slice is None:
-                d_feat = d_feat + reduce_sorted(rows, rec.ids[k], n_rows)
-            else:
-                slots = written_slots(rec.starts[k], rec.bdone[k], per_slice[k], cfg.pair_block)
-                rows_c.append(rows[slots])
-                ids_c.append(rec.ids[k][slots])
-    if per_slice is not None:
-        with stage("reduction"):
-            d_feat = reduce_sorted(torch.cat(rows_c), torch.cat(ids_c), n_rows)
-    return d_feat
+        rows_k.append(rows)
+    d_feat = feat.new_zeros((n_rows, B.NUM_FEATURES))
+    if not rec.ids:
+        return d_feat
+    with stage("reduction"):
+        rows, ids = torch.stack(rows_k), torch.stack(rec.ids)  # [K, s_store, 9], [K, s_store]
+        if walked is None:  # each slice's pairs reduced on their own, in one pass
+            return reduce_sorted(rows, ids, n_rows, out=d_feat)
+        # The walked blocks of every slice, slice after slice.
+        k, s_store = ids.shape
+        starts = torch.stack(rec.starts).long() + torch.arange(0, k * s_store, s_store, device=ids.device)[:, None]
+        slots = written_slots(starts.view(-1), torch.cat(rec.bdone), walked, cfg.pair_block)
+        return reduce_sorted(rows.view(-1, rows.shape[-1])[slots], ids.view(-1)[slots], n_rows, out=d_feat)
 
 
 def render_sliced_tiles(

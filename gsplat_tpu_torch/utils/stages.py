@@ -23,7 +23,8 @@ backward of the rasterizer's ``[T, npix, *]`` tiles, ``preprocess_bwd`` from
 ``feat``'s backward to that of the tensors the preprocess reads from the
 model. ``count(name, value)`` notes a counter (pairs binned, pair demand
 and overflow, slices, the slice budget reached, host syncs, compacted
-reductions); a device value is kept by reference and read once by
+reductions, ``reduced_pairs``: the pair rows the backward's reductions
+read, from shapes); a device value is kept by reference and read once by
 ``counter_values()``, after the caller's fence, so no counter adds a sync
 or a kernel.
 

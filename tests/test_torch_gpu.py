@@ -941,6 +941,63 @@ def test_sliced_render_on_card_matches_cpu(device):
     assert torch.equal(img.detach(), single[0].detach()) and torch.equal(trans.detach(), single[1].detach())
 
 
+def test_per_slice_reduction_at_pool_size_on_card(device, monkeypatch):
+    """The benchmark's ``grow_5m.fit`` backward at full size: its growing
+    scene in a pool of 10,000,128 rows, its raster settings, one render and
+    backward at the pose of most pairs. The walked pairs overflow
+    ``reduce_pairs``, so at least 7 slices are reduced, each on its own and
+    all in one pass, straight into the one ``d_feat``: equal to the earlier
+    per-slice formula (each slice's pairs counted over the pool, reduced by
+    ``reduce_pair_grads`` into a new ``[N+1, 16]`` and added to the
+    total)."""
+    from splatbench import run, scene as bscene, spec
+    from gsplat_tpu_torch.models.gaussians import pad_model
+    from gsplat_tpu_torch.render import sliced
+    from gsplat_tpu_torch.render.pipeline import binning_stats, render_traced
+    from gsplat_tpu_torch.utils import stages
+
+    bench = json.loads((run.REPO / "BENCHMARK.json").read_text())
+    cell = spec.load_cell(bench, "grow_5m.fit", run.REPO)
+    c = cell.config
+    model = pad_model(tgs.GaussianModel(*spec.scene_file(c).build(c, 2147483701, device)), 10_000_128)
+    w, h = c["width"], c["height"]
+    cams = [tgs.CameraArrays.from_params(bscene.camera_params(w, h, *p), device=device)
+            for p in bscene.poses(cell.traffic)]
+    probe = tgs.RasterConfig(tile_size=c["tile_size"], chunk_size=c["chunk_size"], max_pairs=1 << 20,
+                             sh_degree=c["sh_degree"])
+    with torch.no_grad():
+        demand = [int(binning_stats(model, cam, w, h, probe)["pair_demand"]) for cam in cams]
+    cfg = tgs.RasterConfig(
+        tile_size=c["tile_size"], chunk_size=c["chunk_size"], pair_block=c["pair_block"],
+        max_pairs=max(int(max(demand) * c["capacity_headroom"]) // 128 * 128, c["capacity_floor"]),
+        sh_degree=c["sh_degree"], early_stop_transmittance=c["early_stop"], slice_pairs=c["slice_pairs"],
+        reduce_pairs=c["reduce_pairs"],
+    )
+    calls, d_feats = [], []
+    real_reduce, real_backward = sliced.reduce_sorted, sliced._backward_impl
+    monkeypatch.setattr(sliced, "reduce_sorted", lambda rows, ids, n, out: calls.append(
+        (rows.clone(), ids.clone())) or real_reduce(rows, ids, n, out=out))
+    monkeypatch.setattr(sliced, "_backward_impl", lambda *a: d_feats.append(real_backward(*a)) or d_feats[-1])
+    with stages.record_stages() as rec:
+        image, _ = render_traced(model, cams[demand.index(max(demand))], w, h, cfg)
+        torch.autograd.grad(tgs.rgb_loss(image, torch.full_like(image, 0.25), 0.2), list(model.parameters()))
+    torch.cuda.synchronize()
+    counts = {}
+    for name, _, value in rec.counter_values():
+        counts.setdefault(name, []).append(value)
+    (d_feat,) = d_feats
+    ((stacked, ids_k),) = calls  # one pass over the slices' pairs, a set each
+    n_rows = d_feat.shape[0]
+    assert n_rows == 10_000_129 and counts["reduction"] == [0] and ids_k.shape[0] == counts["slices"][0] >= 7
+    assert counts["reduced_pairs"] == [ids_k.numel()]
+    want = torch.zeros_like(d_feat)
+    for rows, ids in zip(stacked, ids_k):
+        per_id = torch.zeros(n_rows, dtype=torch.int64, device=device)
+        per_id.index_add_(0, ids.long(), torch.ones_like(ids, dtype=torch.int64))
+        want = want + reduce_pair_grads(rows, ids, per_id[:-1], n_rows)
+    assert d_feat.abs().max() > 0 and torch.equal(d_feat, want)
+
+
 def _synthetic(kind, tile_size, pair_block, seed=0):
     """Hand-built compositor inputs on a 2x2-tile frame that probe the
     kernels' culling (each warp walks only the pairs whose alpha-bound rect

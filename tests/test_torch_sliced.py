@@ -45,7 +45,7 @@ import gsplat_tpu_torch as tgs
 from gsplat_tpu_torch.kernels import raster as traster
 from gsplat_tpu_torch.kernels.raster import rasterize_tiles
 from gsplat_tpu_torch.kernels.raster_bwd import backward_tiles_carry, backward_tiles_plain, reduce_pair_grads
-from gsplat_tpu_torch.kernels.raster_bwd import reduce_sorted, walk_state
+from gsplat_tpu_torch.kernels.raster_bwd import pair_counts, reduce_sorted, walk_state
 from gsplat_tpu_torch.kernels.raster_fwd import forward_tiles_carry, forward_tiles_plain
 from gsplat_tpu_torch.ops.projection import Preprocessed
 from gsplat_tpu_torch.render import sliced
@@ -338,18 +338,100 @@ def test_unsliced_compacted_reduction(monkeypatch):
     assert scale_err(d_feats[total * 8][:-1, :9], np.asarray(want)[:-1, :9]) < 5e-3
 
 
-def test_reduce_sorted_matches_reduce_pair_grads():
-    """Without ``gaussian_counts`` the per-id segments are found from the
-    sorted ids alone: the same sums as the counts-driven reduction."""
+def _reduce_case(name):
+    """(num_rows, ids [P] or [K, P] int32, rows [..., P, 9]) of one
+    ``reduce_sorted`` case; the sentinel id is ``num_rows - 1``."""
     rng = np.random.default_rng(8)
-    ids = t(rng.integers(0, 41, 500).astype(np.int32))  # 40 gaussians + the sentinel 40
-    rows = t(rng.normal(size=(500, 9)).astype(np.float32))
-    rows[ids == 40] = 0.0
-    counts = torch.bincount(ids.long(), minlength=41)[:-1].to(torch.int32)
-    got = reduce_sorted(rows, ids, 41)
-    torch.testing.assert_close(got, reduce_pair_grads(rows, ids, counts, 41), rtol=0, atol=0)
-    torch.testing.assert_close(got, reduce_pair_grads(rows, ids, None, 41), rtol=1e-5, atol=1e-5)
-    assert not got[-1].any() and not got[:, 9:].any()
+    if name == "mixed":  # 40 gaussians + the sentinel 40, zero rows at the sentinel
+        ids = rng.integers(0, 41, 500)
+        rows = rng.normal(size=(500, 9))
+        rows[ids == 40] = 0.0
+        return 41, t(ids.astype(np.int32)), t(rows.astype(np.float32))
+    n, ids = {
+        "pool_above_pairs": (100_000, rng.choice(rng.choice(100_001, 120), 300)),  # ties, and the sentinel maybe
+        "all_sentinel": (40, np.full(64, 40)),
+        "no_pairs": (40, np.zeros(0, np.int64)),
+        "one_gaussian": (1, rng.integers(0, 2, 200)),
+        "many_scan_blocks": (100, rng.integers(0, 101, 5 * 1024 + 37)),  # long ties across blocks
+        "descending": (60, np.insert(np.repeat(np.arange(60)[::-1], 3), np.arange(0, 180, 5), 60)),
+        # K sets on disjoint ids, reduced in one pass: the sentinel mixed in, alone, and absent.
+        "disjoint_sets": (150, np.stack([rng.integers(0, 50, 700), rng.choice([*range(50, 100), 150], 700),
+                                         np.full(700, 150), rng.integers(100, 150, 700)])),
+    }[name]
+    rows = rng.normal(size=(*ids.shape, 9))  # sentinel rows too: they must not count
+    return n + 1, t(ids.astype(np.int32)), t(rows.astype(np.float32))
+
+
+@pytest.mark.parametrize("case", ["mixed", "pool_above_pairs", "all_sentinel", "no_pairs", "one_gaussian",
+                                  "many_scan_blocks", "descending", "disjoint_sets"])
+def test_reduce_sorted_matches_reduce_pair_grads(case):
+    """Without ``gaussian_counts`` the per-id segments are found from the
+    sorted ids alone: bitwise the counts-driven reduction with each id's
+    pair count (of each set, summed, where K sets are reduced at once), and
+    into a given ``out`` only the ids' rows."""
+    num_rows, ids, rows = _reduce_case(case)
+    got = reduce_sorted(rows, ids, num_rows)
+    if ids.shape[-1]:
+        want = torch.zeros_like(got)
+        for r, i in zip(rows.reshape(-1, ids.shape[-1], 9), ids.reshape(-1, ids.shape[-1])):
+            want = want + reduce_pair_grads(r, i, pair_counts(i, num_rows), num_rows)
+        assert torch.equal(got, want)
+        exact = reduce_pair_grads(rows.reshape(-1, 9), ids.reshape(-1), None, num_rows)
+        # The cumsum reorders f32 additions: each sum is a difference of two
+        # running sums, each off by a few roundings at its magnitude.
+        atol = 1e-5
+        if case != "mixed":
+            by_id = [r.double()[torch.sort(i, stable=True).indices] for r, i in zip(rows.reshape(-1, ids.shape[-1], 9),
+                                                                                   ids.reshape(-1, ids.shape[-1]))]
+            atol += 8 * 2.0 ** -24 * max(float(x.cumsum(0).abs().max()) for x in by_id)
+        torch.testing.assert_close(got, exact, rtol=1e-5, atol=atol)
+    else:  # nothing to sum (the counts-driven form indexes its empty cumsum)
+        assert not got.any()
+    assert got.shape == (num_rows, 16) and not got[-1].any() and not got[:, 9:].any()
+    # Into a given ``out`` (its sentinel row zero): the ids' sums written,
+    # the rest left.
+    out = torch.full((num_rows, 16), 7.0)
+    out[-1] = 0.0
+    want = out.clone()
+    want[ids.long(), :9] = got[ids.long(), :9]
+    assert reduce_sorted(rows, ids, num_rows, out=out) is out and torch.equal(out, want)
+
+
+@pytest.mark.parametrize("reduce_pairs,compacted", [(8, 0), (1 << 12, 1)])
+def test_sliced_backward_reduces_into_one_d_feat(monkeypatch, reduce_pairs, compacted):
+    """The sliced backward's ``d_feat``, per slice (a ``reduce_pairs`` the
+    walked blocks overflow: the slices reduced as sets in one pass) and
+    compacted: bitwise the earlier formula, each slice's (or the compacted
+    buffer's) counts-driven result (``pair_counts`` over the pool) summed
+    into a zeroed ``d_feat``; ``reduced_pairs`` counts the rows the
+    reduction reads, and ``reduction`` the path taken."""
+    from gsplat_tpu_torch.utils import stages
+
+    calls, d_feats = [], []
+    real_reduce, real_backward = sliced.reduce_sorted, sliced._backward_impl
+    monkeypatch.setattr(sliced, "reduce_sorted", lambda rows, ids, n, out: calls.append(
+        (rows.clone(), ids.clone())) or real_reduce(rows, ids, n, out=out))
+    monkeypatch.setattr(sliced, "_backward_impl", lambda *a: d_feats.append(real_backward(*a)) or d_feats[-1])
+    _, loss = _loss_fns(50, 35, 24)
+    model = tgs.GaussianModel.from_arrays(arrays_for(600, 5, opaque=True), device="cpu")
+    cam = tgs.CameraArrays.from_params(port_camera(make_camera(width=50, height=35)), device="cpu")
+    cfg = dataclasses.replace(BASE, early_stop_transmittance=1e-4, slice_pairs=128, reduce_pairs=reduce_pairs)
+    with stages.record_stages() as rec:
+        _port_grads(model, cam, 50, 35, cfg, loss)
+    counts = {}
+    for name, _, value in rec.counter_values():
+        counts.setdefault(name, []).append(value)
+    (d_feat,) = d_feats
+    n_rows = d_feat.shape[0]
+    ((rows, ids),) = calls  # one pass: the compacted pairs, or each slice's as a set
+    sets = list(zip(rows, ids)) if ids.dim() == 2 else [(rows, ids)]
+    assert counts["reduction"] == [compacted]
+    assert len(sets) == (1 if compacted else counts["slices"][0]) and counts["slices"][0] >= 3
+    assert counts["reduced_pairs"] == [sum(i.shape[0] for _, i in sets)]
+    want = torch.zeros_like(d_feat)
+    for r, i in sets:
+        want = want + reduce_pair_grads(r, i, pair_counts(i, n_rows), n_rows)
+    assert d_feat.abs().max() > 0 and torch.equal(d_feat, want)
 
 
 @pytest.mark.parametrize("size", [(64, 48), (50, 35)])
