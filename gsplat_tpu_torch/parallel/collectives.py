@@ -4,12 +4,24 @@ Only ``all_gather``, ``all_reduce`` and ``broadcast`` are used: both the
 NCCL and the gloo backends take CUDA tensors for those three.
 ``torch.distributed.nn``'s differentiable all-gather is not used, since its
 backward needs a reduce-scatter, which gloo does not do on CUDA tensors.
+
+While stages are recorded (``utils/stages.py``), the gather's backward is
+the span ``gather_bwd``, and two counters note what a step moves, host
+ints from shapes: ``gather_bytes``, the bytes each all-gather outputs, and
+``reduce_bytes``, the bytes each summing all-reduce sums (the gather's
+backward included).
 """
 
 from __future__ import annotations
 
 import torch
 import torch.distributed as dist
+
+from gsplat_tpu_torch.utils import stages
+
+
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
 
 
 class _AllGatherRows(torch.autograd.Function):
@@ -22,14 +34,18 @@ class _AllGatherRows(torch.autograd.Function):
         parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
         dist.all_gather(parts, x.contiguous(), group=group)
         ctx.group, ctx.rows = group, x.shape[0]
-        return torch.cat(parts)
+        out = torch.cat(parts)
+        stages.count("gather_bytes", _nbytes(out))
+        return out
 
     @staticmethod
     def backward(ctx, grad):
-        grad = grad.contiguous().clone()
-        dist.all_reduce(grad, group=ctx.group)
-        start = dist.get_rank(ctx.group) * ctx.rows
-        return grad[start : start + ctx.rows], None
+        with stages.stage("gather_bwd"):
+            grad = grad.contiguous().clone()
+            stages.count("reduce_bytes", _nbytes(grad))
+            dist.all_reduce(grad, group=ctx.group)
+            start = dist.get_rank(ctx.group) * ctx.rows
+            return grad[start : start + ctx.rows], None
 
 
 def all_gather_rows(x: torch.Tensor, group) -> torch.Tensor:
@@ -41,6 +57,7 @@ def all_gather_rows(x: torch.Tensor, group) -> torch.Tensor:
 
 def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     """``x`` summed over ``group``, in place; returns ``x``."""
+    stages.count("reduce_bytes", _nbytes(x))
     dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
     return x
 

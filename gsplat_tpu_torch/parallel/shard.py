@@ -226,7 +226,10 @@ def _frame(stacked, lay: _ShardLayout, width, height, tile_size):
 def _stacked_to_image(slab, mesh: Mesh, lay: _ShardLayout, width, height, tile_size):
     """This rank's ``[T_l, npix, C...]`` tile slab -> the whole
     ``[H, W, C...]`` frame, all-gathered over the row (differentiably)."""
-    stacked = all_gather_rows(slab, mesh.row_group) if lay.sy * lay.sx > 1 else slab
+    stacked = slab
+    if lay.sy * lay.sx > 1:
+        with stage("frame_gather"):
+            stacked = all_gather_rows(slab, mesh.row_group)
     return _frame(stacked, lay, width, height, tile_size)
 
 
@@ -315,7 +318,13 @@ def make_parallel_train_step(
         and (beyond the JAX package's contract) each view's screen radii
         ``[B, N]`` from the step's own preprocess of the model before the
         update, the input of the screen-size prune;
-      * ``init_state(model)`` is the optimizer (``train/trainer.py``).
+      * ``init_state(model)`` is the optimizer (``train/trainer.py``);
+      * with ``optimizer=None`` the step runs the same forward, loss,
+        backward and gradient all-reduce, leaves the model as it is and
+        returns (grads, frames, metrics): the five raw parameters'
+        gradients summed over the world (fresh tensors each call), the
+        whole frames ``[B, H, W, 3]`` (background composited) on every
+        rank, and ``metrics`` as above (not with ``with_viewspace_grad``).
     """
     dp = mesh.shape[DATA_AXIS]
     tp = mesh.shape[TILE_AXIS]
@@ -347,12 +356,15 @@ def make_parallel_train_step(
         mask_l = pixel_mask(dev)[d * t_l : (d + 1) * t_l, :, None]
         if bg is None:
             bg = torch.zeros(3, device=dev)
-        optimizer.zero_grad(set_to_none=True)
+        if optimizer is not None:
+            optimizer.zero_grad(set_to_none=True)
+        elif with_viewspace_grad:
+            raise ValueError("the step without an update takes no viewspace probe")
         offset = None
         if with_viewspace_grad:
             offset = torch.zeros((bl, n_local, 2), dtype=model.means.dtype, device=dev, requires_grad=True)
         loss_sum = mse_sum = 0.0
-        radii = []
+        radii, frames = [], []
         with stage("forward"):
             for i in range(bl):
                 b = mesh.data_index * bl + i
@@ -374,17 +386,35 @@ def make_parallel_train_step(
                         loss_sum = loss_sum + rgb_loss(image, target, ssim_w) / tp
                     else:
                         loss_sum = loss_sum + ((color - target_l).abs() * mask_l).sum() / npixels
+                        if optimizer is None:
+                            image = _stacked_to_image(color.detach(), mesh, lay, width, height,
+                                                      raster_cfg.tile_size)
+                    if optimizer is None:
+                        frames.append(image.detach())
+        params = list(model.parameters())
         with stage("backward"):
-            (loss_sum / batch).backward()
+            if optimizer is None:
+                grads = list(torch.autograd.grad(loss_sum / batch, params, allow_unused=True))
+            else:
+                (loss_sum / batch).backward()
+                grads = [p.grad for p in params]
         with stage("grad_all_reduce"):
-            for p in model.parameters():
-                if p.grad is None:  # a rank whose slice is all padding
-                    p.grad = torch.zeros_like(p)
-                all_reduce_sum(p.grad, mesh.world_group)
-        with stage("optimizer"):
-            optimizer_step(optimizer, train_cfg)
+            for k, p in enumerate(params):
+                if grads[k] is None:  # a rank whose slice is all padding
+                    grads[k] = torch.zeros_like(p)
+                    if optimizer is not None:
+                        p.grad = grads[k]
+                all_reduce_sum(grads[k], mesh.world_group)
+        if optimizer is not None:
+            with stage("optimizer"):
+                optimizer_step(optimizer, train_cfg)
         totals = all_reduce_sum(torch.stack([loss_sum.detach(), mse_sum]), mesh.world_group) / batch
         metrics = {"loss": totals[0], "psnr": -10.0 * torch.log10(torch.clamp(totals[1], min=1e-12))}
+        if optimizer is None:
+            frames = torch.stack(frames)
+            if dp > 1:
+                frames = all_gather_rows(frames, mesh.column_group)
+            return grads, frames, metrics
         if not with_viewspace_grad:
             return model, optimizer, metrics
         # The loss averages over the batch, so each probe row carries a

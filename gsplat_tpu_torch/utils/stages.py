@@ -24,9 +24,10 @@ backward of the rasterizer's ``[T, npix, *]`` tiles, ``preprocess_bwd`` from
 model. ``count(name, value)`` notes a counter (pairs binned, pair demand
 and overflow, slices, the slice budget reached, host syncs, compacted
 reductions, ``reduced_pairs``: the pair rows the backward's reductions
-read, from shapes); a device value is kept by reference and read once by
-``counter_values()``, after the caller's fence, so no counter adds a sync
-or a kernel.
+read, from shapes; ``gather_bytes`` and ``reduce_bytes``: what the mesh's
+collectives gather and sum, from shapes); a device value is kept by
+reference and read once by ``counter_values()``, after the caller's fence,
+so no counter adds a sync or a kernel.
 
 A :class:`Span` holds its name, the span that caused it (the enclosing one
 on its own thread; for the first span on autograd's thread, the span open

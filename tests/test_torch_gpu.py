@@ -1484,6 +1484,23 @@ def test_mesh_step_on_card_matches_one_device(device, tmp_path, backend):
     np.testing.assert_allclose(got["params"]["means"], one["params"]["means"], rtol=1e-4, atol=1e-7)
 
 
+def test_dense_mesh_step_across_four_cards_matches_one_card(device, tmp_path):
+    """The dense scene's step without its update over a 1x4 mesh of NCCL
+    ranks, one card each (``splatbench``'s ``dense_5m_tile1x4.train``),
+    against the one-card unsliced step, both with the exact pair reduction:
+    the frame bitwise, the loss at rtol 1e-5, every gradient within the
+    backward's rtol 1e-4 + atol 1e-5 of each column's scale (the ranks'
+    partial rows are summed in another order)."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    import torch_mesh_worker as worker
+
+    got = worker.spawn_world(worker.dense_step_world, 4, tmp_path, device="cuda", backend="nccl", timeout=600.0)[0]
+    assert got["bitwise"], got
+    assert got["loss"] == pytest.approx(got["want_loss"], rel=1e-5)
+    assert all(got[name] == 0 for name in worker.NAMES), got
+
+
 def test_coverage_histogram_on_card_matches_cpu(device):
     """``coverage_histogram`` adds integers (``index_add_`` of +-1 at rect
     corners, then prefix sums), so the card's counts equal the CPU's, here

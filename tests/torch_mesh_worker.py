@@ -62,6 +62,8 @@ def spawn_world(fn, world_size: int, tmp_dir, *args, timeout: float = 240.0, dev
 
 def _rank_main(rank, fn, world_size, store, tmp_dir, device, backend, args):
     torch.set_num_threads(1)  # the ranks share the host's cores
+    if backend == "nccl":
+        os.environ["LOCAL_RANK"] = str(rank)  # one card a rank
     dev = initialize_distributed(
         backend=backend, device=device, init_method=f"file://{store}", rank=rank, world_size=world_size,
         timeout=COLLECTIVE_TIMEOUT,
@@ -283,3 +285,90 @@ def repeated_step_world(dev, arrays, cam_fields, target, data, tile):
     targets = torch.from_numpy(np.stack([target] * data)).to(dev)
     metrics = step(model, init_state(model), _stack([camera(cam_fields)] * data, dev), prepare(targets))[2]
     return {"loss": float(metrics["loss"]), "params": arrays_of(model), "digest": digest(model)}
+
+
+def update_free_world(dev, arrays, cam_fields, targets, meshes, ssim_weights):
+    """The step without its update (``optimizer=None``) on every (mesh, ssim
+    weight), from ``arrays``, its camera batch the first ``data`` cameras:
+    its gradients, frames and loss, the stage counters and spans it
+    records, whether the model is left as it was, whether a second call
+    gives the same gradients; then the step with an optimizer on the same
+    inputs."""
+    from gsplat_tpu_torch.utils import stages
+
+    out = {}
+    for data, tile in meshes:
+        mesh = make_mesh(tgs.MeshConfig(data, tile))
+        cams = _stack([camera(f) for f in cam_fields[:data]], dev)
+        for w in ssim_weights:
+            step, init_state, prepare = make_parallel_train_step(mesh, W, H, tgs.RasterConfig(**SMALL),
+                                                                 tgs.TrainConfig(ssim_weight=w))
+            model = model_of(arrays, dev)
+            tiles = prepare(torch.from_numpy(targets[:data]).to(dev))
+            with stages.record_stages(events=False) as rec:
+                grads, frames, metrics = step(model, None, cams, tiles)
+            again = step(model, None, cams, tiles)[0]
+            unchanged = digest(model) == digest(model_of(arrays, dev))
+            no_grad = all(p.grad is None for p in model.parameters())
+            result = step(model, init_state(model), cams, tiles)
+            out[f"{data}x{tile}_{w}"] = {
+                "grads": [g.cpu().numpy() for g in grads], "frames": frames.cpu().numpy(),
+                "loss": float(metrics["loss"]), "unchanged": unchanged, "no_grad": no_grad,
+                "again_equal": all(torch.equal(a, b) for a, b in zip(grads, again)),
+                "counters": [(n, v) for n, _, v in rec.counter_values() if n in ("gather_bytes", "reduce_bytes")],
+                "spans": [sp.name for sp in rec.spans],
+                "with_optimizer": {
+                    "is_model": result[0] is model, "len": len(result), "loss": float(result[2]["loss"]),
+                    "p_grads": [p.grad.cpu().numpy() for p in model.parameters()], "params": arrays_of(model),
+                },
+            }
+    return out
+
+
+def dense_step_world(dev):
+    """The dense scene (``card``'s 5M gaussians at scale shift 1.9, the bench
+    pose, early stop 1e-4) through the 1x4 mesh's step without its update,
+    a shard's capacity 1.1x the largest shard demand; on rank 0 also the
+    one-card unsliced step (capacity 1.1x the view's demand), against the
+    constant 0.25 target at SSIM weight 0.2. Both reduce the pair rows
+    exactly (``exact_grad_reduction``): the f32 reduction's error follows
+    the magnitude of its running sums, which differ between a shard's pairs
+    and the whole frame's. Rank 0 returns whether the frames are bitwise
+    equal, both losses, and for each gradient the count of entries outside
+    rtol 1e-4 + atol 1e-5 of their column's largest magnitude (and of
+    entries whose finiteness differs), with the worst excess over that
+    tolerance in units of it."""
+    from gsplat_tpu_torch.parallel import replicated
+    from gsplat_tpu_torch.render.pipeline import binning_stats, render_traced
+
+    width, height = card.WIDTH, card.HEIGHT
+    mesh = make_mesh(tgs.MeshConfig(1, 4))
+    model = replicated(mesh, card.build_scene(card.REAL_N, card.REAL_SHIFT, dev))
+    cam = tgs.CameraArrays.from_params(card.camera_params(width, height, 0.0, 0.0), device=dev)
+    base = dict(tile_size=32, chunk_size=32, pair_block=128, sh_degree=3, early_stop_transmittance=1e-4)
+    probe = tgs.RasterConfig(max_pairs=1 << 20, **base)
+    with torch.no_grad():
+        shard = int(make_sharded_binning_stats(mesh, width, height, probe)(model, cam)["max_shard_demand"])
+    cfg = tgs.RasterConfig(max_pairs=int(shard * 1.1) // 128 * 128, exact_grad_reduction=True, **base)
+    step, _, prepare = make_parallel_train_step(mesh, width, height, cfg, tgs.TrainConfig(ssim_weight=0.2))
+    target = torch.full((1, height, width, 3), 0.25, device=dev)
+    grads, frames, metrics = step(model, None, tgs.CameraArrays.stack([cam]), prepare(target))
+    if mesh.rank != 0:
+        return {}
+    with torch.no_grad():
+        demand = int(binning_stats(model, cam, width, height, probe)["pair_demand"])
+    one = tgs.RasterConfig(max_pairs=int(demand * 1.1) // 128 * 128, exact_grad_reduction=True, **base)
+    image = render_traced(model, cam, width, height, one)[0]
+    loss = tgs.rgb_loss(image, target[0], 0.2)
+    want = torch.autograd.grad(loss, list(model.parameters()))
+    out = {"bitwise": torch.equal(frames[0], image.detach()), "loss": float(metrics["loss"]),
+           "want_loss": float(loss.detach()), "shard_demand": shard, "demand": demand}
+    for name, g, w in zip(NAMES, grads, want):
+        g, w = g.reshape(g.shape[0], -1), w.reshape(w.shape[0], -1)
+        finite = torch.isfinite(w)
+        scale = torch.where(finite, w.abs(), torch.zeros_like(w)).amax(0, keepdim=True)
+        tol = 1e-4 * w.abs() + 1e-5 * scale
+        excess = torch.where(finite, (g - w).abs() / tol, torch.zeros_like(w))
+        out[name] = int((finite & ~(excess <= 1.0)).sum()) + int((torch.isfinite(g) != finite).sum())
+        out[f"{name}_worst"] = float(excess.max())
+    return out
